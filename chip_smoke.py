@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (written for an H100) and ``nvcc``; imports nothing of
+JAX.  Phases, each printing one JSON line:
+
+1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, and the
+   build of every kernel from ``src/repro_torch/kernels/*/csrc``;
+2. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes, fp32 (max abs err <= 1e-4) and bf16 (<= 2e-2),
+   with its time, the plain version's, one PyTorch library call's
+   (``scaled_dot_product_attention`` on the same inputs made dense, a
+   yardstick the port never calls) and the bound: the larger of the bytes
+   moved over 3.35 TB/s and the flops over the peak rate for the inputs'
+   type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32);
+3. reduced: reduced llama3.1-8b in fp32 served on the kernel path and on
+   the CPU plain path with the same weights: greedy tokens must match;
+4. serve: full-width llama3.1-8b in bf16 (random weights from a seed) on two
+   engines sharing one weight set, one-shot and chunked prefill, 12
+   requests through the EMA-routed launcher; every request must finish,
+   and every prefill and decode layer must have launched its kernel.
+
+Then the ``kernels`` line (launch counts from phase 4 only), the card's
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
+failure raises and exits non-zero without that last line, as does a
+machine without a CUDA device.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype_name: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def paged_case(B: int, dtype_name: str, seed: int):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    H, KV, hd, page, max_ctx = 32, 8, 128, 16, 4096
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_pages = max_ctx // page
+    P = B * n_pages
+    q = torch.randn((B, H, hd), generator=g, device="cuda").to(dt)
+    kp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
+    vp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
+    bt = torch.randperm(P, generator=g, device="cuda").to(torch.int32)
+    bt = bt.view(B, n_pages).contiguous()
+    ctx = torch.randint(1, max_ctx + 1, (B,), generator=g, device="cuda")
+    if B > 1:
+        ctx[0], ctx[1] = 0, max_ctx        # an empty sequence and a full one
+    ctx = ctx.to(torch.int32)
+    args = (q, kp, vp, bt, ctx)
+    out = paged_attention(*args)
+    ref = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    if B > 1 and out[0].abs().max().item() != 0.0:
+        raise AssertionError("paged kernel: ctx=0 row is not zeros")
+    # the library yardstick: SDPA over the same K/V gathered dense
+    S = n_pages * page
+    kd = kp[bt.long()].reshape(B, S, KV, hd).transpose(1, 2)
+    vd = vp[bt.long()].reshape(B, S, KV, hd).transpose(1, 2)
+    kd = kd.repeat_interleave(H // KV, dim=1)
+    vd = vd.repeat_interleave(H // KV, dim=1)
+    mask = (torch.arange(S, device="cuda")[None] < ctx.long()[:, None])
+    mask = mask[:, None, None, :]
+    q4 = q[:, :, None]
+    tot = int(ctx.long().sum())
+    es = q.element_size()
+    nbytes = es * (2 * tot * KV * hd + 2 * B * H * hd) + 4 * (B * n_pages + B)
+    b_ms, b_by = bound(nbytes, 4.0 * H * hd * tot, dtype_name)
+    return {
+        "B": B, "dtype": dtype_name, "ctx_sum": tot,
+        "ctx_max": int(ctx.max()), "max_abs_err": err,
+        "ms": time_ms(lambda: paged_attention(*args)),
+        "plain_ms": time_ms(lambda: paged_attention_ref(*args), iters=5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, kd, vd, attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, H, KV, hd = 1, 32, 8, 128
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((B, Lq, H, hd), generator=g, device="cuda").to(dt)
+    k = torch.randn((B, Lk, KV, hd), generator=g, device="cuda").to(dt)
+    v = torch.randn((B, Lk, KV, hd), generator=g, device="cuda").to(dt)
+    out = flash_attention(q, k, v, causal=True)
+    ref = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    off = Lk - Lq
+    pairs = sum(min(Lk, i + off + 1) for i in range(Lq))   # causal (q, k)
+    es = q.element_size()
+    nbytes = es * (2 * B * Lq * H * hd + 2 * B * Lk * KV * hd)
+    b_ms, b_by = bound(nbytes, 4.0 * B * H * hd * pairs, dtype_name)
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
+    qi = torch.arange(Lq, device="cuda")[:, None] + off
+    mask = torch.arange(Lk, device="cuda")[None] <= qi
+    return {
+        "Lq": Lq, "Lk": Lk, "dtype": dtype_name, "max_abs_err": err,
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True),
+                            iters=3),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def check_kernels():
+    cases = {"paged_attention": [], "flash_attention": []}
+    for dtype_name in ("float32", "bfloat16"):
+        for B in (1, 8):
+            cases["paged_attention"].append(paged_case(B, dtype_name, B))
+        for Lq, Lk in ((2000, 2000), (512, 1536)):
+            cases["flash_attention"].append(flash_case(Lq, Lk, dtype_name, Lq))
+    for name, rows in cases.items():
+        for r in rows:
+            emit({"phase": "kernel", "name": name, **r})
+            if not r["max_abs_err"] <= TOL[r["dtype"]]:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {r}")
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 3: reduced model, kernel path against the CPU plain path
+# ---------------------------------------------------------------------------
+
+def check_reduced():
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.engine.engine import EngineRequest, InferenceEngine
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.models.model import init_params
+    cfg = reduce_config(get_config("llama3.1-8b"), layers_per_stage=2)
+    cpu = init_params(cfg, torch.Generator().manual_seed(7),
+                      dtype=torch.float32, device="cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = torch.Generator().manual_seed(1)
+    batched = [list(range(5 + i, 13 + i)) for i in range(5)]
+    chunked = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (17, 9)]
+    f0, p0 = flash_attention.launches, paged_attention.launches
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        for name, prompts, kw in (("batched", batched, dict(max_batch=3)),
+                                  ("chunked", chunked,
+                                   dict(max_batch=2, prefill_chunk=8))):
+            eng = InferenceEngine(cfg, model, max_len=64, device=dev, **kw)
+            for rid, p in enumerate(prompts):
+                eng.submit(EngineRequest(rid=rid, tokens=list(p),
+                                         prompt_len=len(p), max_new_tokens=6))
+            out[dev, name] = {r.rid: r.generated
+                              for r in eng.run_until_drained()}
+    res = {"phase": "reduced", "config": cfg.name,
+           "flash_launches": flash_attention.launches - f0,
+           "paged_launches": paged_attention.launches - p0,
+           "tokens_equal": all(out["cpu", n] == out["cuda", n]
+                               for n in ("batched", "chunked")),
+           "n_requests": sum(len(v) for (d, _), v in out.items()
+                             if d == "cuda")}
+    emit(res)
+    if not (res["tokens_equal"] and res["n_requests"] == 7
+            and res["flash_launches"] > 0 and res["paged_launches"] > 0):
+        raise AssertionError(f"reduced kernel path disagrees: {out}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width llama3.1-8b through the EMA-routed launcher
+# ---------------------------------------------------------------------------
+
+def serve_full_width():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.launch import serve
+    cfg = get_config("llama3.1-8b")
+    max_new, n_req = 32, 12
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engines = serve.build_engines(cfg, 2, "full", "cuda", seed=0)
+    requests = serve.make_requests(cfg, n_req, max_new, "full", seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    flash_attention.launches = 0
+    paged_attention.launches = 0
+    report = serve.serve(engines, requests)
+    launches = {"flash_attention": flash_attention.launches,
+                "paged_attention": paged_attention.launches}
+    done = [r for e in engines for r in e.completed]
+    events = [ev for evs in report["events"] for ev in evs]
+    prefills = [dt for kind, _, dt in events if kind == "prefill"]
+    decodes = [(n, dt) for kind, n, dt in events if kind == "decode"]
+    # one flash launch per layer per one-shot prefill or prefill chunk, one
+    # paged launch per layer per decode step (engine 1 stages in chunks)
+    prefill_calls = sum(
+        1 if e.prefill_chunk is None else math.ceil(r.prompt_len
+                                                    / e.prefill_chunk)
+        for e in engines for r in e.completed)
+    res = {
+        "phase": "serve", "config": cfg.name, "dtype": "bfloat16",
+        "engines": len(engines), "requests": n_req, "finished": len(done),
+        "routed": report["routed"],
+        "prompt_tokens": sum(r.prompt_len for r in done),
+        "generated_tokens": sum(len(r.generated) for r in done),
+        "setup_s": setup_s, "serve_s": report["seconds"],
+        "prefill_calls": prefill_calls, "decode_steps": len(decodes),
+        "launches": launches,
+        # TTFT: prefill start to first token, queueing excluded; TPOT: one
+        # batched decode iteration
+        "median_ttft_s": statistics.median(prefills),
+        "median_tpot_s": statistics.median(dt for _, dt in decodes),
+        "decode_tokens_per_s": (sum(n for n, _ in decodes)
+                                / sum(dt for _, dt in decodes)),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(res)
+    L = cfg.num_layers
+    if not (len(done) == n_req
+            and all(len(r.generated) == max_new for r in done)
+            and launches["flash_attention"] == L * prefill_calls
+            and launches["paged_attention"] == L * len(decodes)
+            and {0, 1} <= set(report["routed"])):
+        raise AssertionError(f"full-width serve incomplete: {res}")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
+          "build_s": time.perf_counter() - t0,
+          "ptxas": {n: [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for n, log in logs.items()}})
+
+    cases = check_kernels()
+    check_reduced()
+    launches = serve_full_width()
+
+    def line(name, route, source, replaces, row):
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "at": {k: row[k] for k in row if k in
+                       ("B", "Lq", "Lk", "dtype", "ctx_sum", "ctx_max")}}
+    paged = next(r for r in cases["paged_attention"]
+                 if r["dtype"] == "bfloat16" and r["B"] == 8)
+    flash = next(r for r in cases["flash_attention"]
+                 if r["dtype"] == "bfloat16" and r["Lq"] == 2000)
+    emit({"kernels": [
+        line("paged_attention", "cuda",
+             "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention/paged_attention.py:33", paged),
+        line("flash_attention", "cuda",
+             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:23", flash),
+    ], "not_ported": [{"name": "ssd", "replaces":
+                       "src/repro/kernels/ssd/ssd.py:20",
+                       "status": "not_ported"}]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
