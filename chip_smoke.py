@@ -7,25 +7,35 @@ Needs one CUDA card (written for an H100) and ``nvcc``; imports nothing of
 JAX.  Phases, each printing one JSON line:
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, and the
-   build of every kernel from ``src/repro_torch/kernels/*/csrc``;
+   build of every kernel from ``src/repro_torch/kernels/*/csrc`` (three:
+   paged decode, flash attention, SSD scan);
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes, fp32 (max abs err <= 1e-4) and bf16 (<= 2e-2),
-   with its time, the plain version's, one PyTorch library call's
-   (``scaled_dot_product_attention`` on the same inputs made dense, a
-   yardstick the port never calls) and the bound: the larger of the bytes
-   moved over 3.35 TB/s and the flops over the peak rate for the inputs'
-   type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32);
-3. reduced: reduced llama3.1-8b in fp32 served on the kernel path and on
-   the CPU plain path with the same weights: greedy tokens must match;
-4. serve: full-width llama3.1-8b in bf16 (random weights from a seed) on two
-   engines sharing one weight set, one-shot and chunked prefill, 12
-   requests through the EMA-routed launcher; every request must finish,
-   and every prefill and decode layer must have launched its kernel.
+   the main paths' shapes, with its time, the plain version's, one PyTorch
+   library call's where one computes the same function
+   (``scaled_dot_product_attention`` on the attention inputs made dense, a
+   yardstick the port never calls; none computes the SSD scan) and the
+   bound: the larger of the bytes moved over 3.35 TB/s and the flops over
+   the peak rate for the arithmetic's type (989 TFLOP/s bf16 tensor cores,
+   67 TFLOP/s fp32).  Attention: fp32 max abs err <= 1e-4, bf16 <= 2e-2.
+   SSD: both input types are computed in fp32 by the kernel and the plain
+   version alike, so both are held to 1e-4 of the plain output's largest
+   magnitude, with dt and A drawn as the model draws them so that terms
+   far across tiles and chunks count; its flops count C Bᵀ once per group;
+3. reduced: reduced llama3.1-8b and reduced mamba2-1.3b in fp32, each
+   served on the kernel path and on the CPU plain path with the same
+   weights: greedy tokens must match;
+4. serve: full-width llama3.1-8b, then full-width mamba2-1.3b, in bf16
+   (random weights from a seed), each on two engines sharing one weight
+   set, 12 requests through the EMA-routed launcher; llama's odd engine
+   prefills in chunks, mamba's engines both prefill in one shot.  Every
+   request must finish, and every prefill and decode layer must have
+   launched its kernel: the launch counts are set to 0 just before each
+   model's run and read just after it.
 
-Then the ``kernels`` line (launch counts from phase 4 only), the card's
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
-failure raises and exits non-zero without that last line, as does a
-machine without a CUDA device.
+Then the ``kernels`` line (launch counts from the phase-4 run of the model
+whose path runs each kernel), the card's ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
+without that last line, as does a machine without a CUDA device.
 """
 from __future__ import annotations
 
@@ -165,17 +175,67 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int):
     }
 
 
+def ssd_case(L: int, dtype_name: str, seed: int):
+    """mamba2-1.3b's scan at B=1: H=64 heads of P=64, one group of N=128,
+    chunk 256.  dt and A are drawn as ``init_mamba`` draws them (dt =
+    softplus(noise + dt_bias), dt_bias for dt in [1e-3, 0.1]; A = -1..-H),
+    so the slow heads carry O(1) weight across key tiles and chunks."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    B, H, P, G, N, Q = 1, 64, 64, 1, 128, 256
+    dt_ = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((B, L, H, P), generator=g, device="cuda").to(dt_)
+    dt0 = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(
+        (H,), generator=g, device="cuda"))
+    dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = F.softplus(torch.randn((B, L, H), generator=g, device="cuda")
+                    + dt_bias)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
+    Bm = (0.3 * torch.randn((B, L, G, N), generator=g, device="cuda")).to(dt_)
+    Cm = (0.3 * torch.randn((B, L, G, N), generator=g, device="cuda")).to(dt_)
+    args = (x, dt, A, Bm, Cm)
+    y, st = ssd(*args, chunk=Q)
+    yr, str_ = ssd_ref(*args, chunk=Q)
+    torch.cuda.synchronize()
+    rel = max(max_err(y, yr) / yr.abs().max().item(),
+              max_err(st, str_) / str_.abs().max().item())
+    # C Bᵀ once per (batch, group, chunk): the H/G heads of a group share
+    # it.  Per head: att·x over the causal pairs, C·state and the update.
+    pairs = Q * (Q + 1) // 2
+    flops = (B * G * (L // Q) * 2 * N * pairs
+             + B * H * (L // Q) * (2 * P * pairs + 4 * Q * N * P))
+    es = x.element_size()
+    nbytes = (es * (B * L * H * P + 2 * B * L * G * N) + 4 * (B * L * H + H)
+              + 4 * (B * L * H * P + B * H * P * N))
+    b_ms, b_by = bound(nbytes, flops, "float32")   # both compute in fp32
+    return {
+        "B": B, "L": L, "dtype": dtype_name,
+        "max_abs_err": max(max_err(y, yr), max_err(st, str_)),
+        "rel_err": rel,
+        "ms": time_ms(lambda: ssd(*args, chunk=Q)),
+        "plain_ms": time_ms(lambda: ssd_ref(*args, chunk=Q), iters=5),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 def check_kernels():
-    cases = {"paged_attention": [], "flash_attention": []}
+    cases = {"paged_attention": [], "flash_attention": [], "ssd": []}
     for dtype_name in ("float32", "bfloat16"):
         for B in (1, 8):
             cases["paged_attention"].append(paged_case(B, dtype_name, B))
         for Lq, Lk in ((2000, 2000), (512, 1536)):
             cases["flash_attention"].append(flash_case(Lq, Lk, dtype_name, Lq))
+        for L in (2048, 512):
+            cases["ssd"].append(ssd_case(L, dtype_name, L))
     for name, rows in cases.items():
         for r in rows:
             emit({"phase": "kernel", "name": name, **r})
-            if not r["max_abs_err"] <= TOL[r["dtype"]]:
+            ok = (r["rel_err"] <= TOL["float32"] if name == "ssd"
+                  else r["max_abs_err"] <= TOL[r["dtype"]])
+            if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {r}")
     return cases
@@ -185,22 +245,39 @@ def check_kernels():
 # phase 3: reduced model, kernel path against the CPU plain path
 # ---------------------------------------------------------------------------
 
-def check_reduced():
+def wrappers():
+    """{kernel name: its wrapper, which carries the ``launches`` count}."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.ssd.ops import ssd
+    return {"paged_attention": paged_attention,
+            "flash_attention": flash_attention, "ssd": ssd}
+
+
+def path_kernels(cfg):
+    """The kernels the serving path of ``cfg`` launches."""
+    from repro_torch.models.model import layer_caches
+    by_cache = {"kv": {"flash_attention", "paged_attention"}, "ssm": {"ssd"}}
+    return set().union(*(by_cache[kind] for kind, _ in layer_caches(cfg)))
+
+
+def check_reduced(arch: str):
     import torch
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.engine.engine import EngineRequest, InferenceEngine
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.models.model import init_params
-    cfg = reduce_config(get_config("llama3.1-8b"), layers_per_stage=2)
+    cfg = reduce_config(get_config(arch), layers_per_stage=2)
     cpu = init_params(cfg, torch.Generator().manual_seed(7),
                       dtype=torch.float32, device="cpu")
     gpu = copy.deepcopy(cpu).to("cuda")
     rng = torch.Generator().manual_seed(1)
     batched = [list(range(5 + i, 13 + i)) for i in range(5)]
+    # mamba (16-row chunks): its engines gate chunked prefill off, so
+    # "chunked" runs one-shot too, over one and two chunks
     chunked = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
                for n in (17, 9)]
-    f0, p0 = flash_attention.launches, paged_attention.launches
+    w = wrappers()
+    before = {n: f.launches for n, f in w.items()}
     out = {}
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
         for name, prompts, kw in (("batched", batched, dict(max_batch=3)),
@@ -212,54 +289,53 @@ def check_reduced():
                                          prompt_len=len(p), max_new_tokens=6))
             out[dev, name] = {r.rid: r.generated
                               for r in eng.run_until_drained()}
-    res = {"phase": "reduced", "config": cfg.name,
-           "flash_launches": flash_attention.launches - f0,
-           "paged_launches": paged_attention.launches - p0,
+    launches = {n: f.launches - before[n] for n, f in w.items()}
+    res = {"phase": "reduced", "config": cfg.name, "launches": launches,
            "tokens_equal": all(out["cpu", n] == out["cuda", n]
                                for n in ("batched", "chunked")),
            "n_requests": sum(len(v) for (d, _), v in out.items()
                              if d == "cuda")}
     emit(res)
     if not (res["tokens_equal"] and res["n_requests"] == 7
-            and res["flash_launches"] > 0 and res["paged_launches"] > 0):
-        raise AssertionError(f"reduced kernel path disagrees: {out}")
+            and all(launches[n] > 0 for n in path_kernels(cfg))):
+        raise AssertionError(f"reduced kernel path disagrees: {res} {out}")
 
 
 # ---------------------------------------------------------------------------
-# phase 4: full-width llama3.1-8b through the EMA-routed launcher
+# phase 4: full-width models through the EMA-routed launcher
 # ---------------------------------------------------------------------------
 
-def serve_full_width():
+def serve_full_width(arch: str):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.launch import serve
-    cfg = get_config("llama3.1-8b")
+    cfg = get_config(arch)
     max_new, n_req = 32, 12
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engines = serve.build_engines(cfg, 2, "full", "cuda", seed=0)
     requests = serve.make_requests(cfg, n_req, max_new, "full", seed=0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    flash_attention.launches = 0
-    paged_attention.launches = 0
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
     report = serve.serve(engines, requests)
-    launches = {"flash_attention": flash_attention.launches,
-                "paged_attention": paged_attention.launches}
+    launches = {n: f.launches for n, f in w.items()}
     done = [r for e in engines for r in e.completed]
     events = [ev for evs in report["events"] for ev in evs]
     prefills = [dt for kind, _, dt in events if kind == "prefill"]
     decodes = [(n, dt) for kind, n, dt in events if kind == "decode"]
-    # one flash launch per layer per one-shot prefill or prefill chunk, one
-    # paged launch per layer per decode step (engine 1 stages in chunks)
+    # one flash or ssd launch per layer per one-shot prefill or prefill
+    # chunk, one paged launch per attention layer per decode step
     prefill_calls = sum(
         1 if e.prefill_chunk is None else math.ceil(r.prompt_len
                                                     / e.prefill_chunk)
         for e in engines for r in e.completed)
     res = {
         "phase": "serve", "config": cfg.name, "dtype": "bfloat16",
+        "prefill_chunk": [e.prefill_chunk for e in engines],
         "engines": len(engines), "requests": n_req, "finished": len(done),
         "routed": report["routed"],
         "prompt_tokens": sum(r.prompt_len for r in done),
@@ -277,12 +353,16 @@ def serve_full_width():
     }
     emit(res)
     L = cfg.num_layers
+    kernels = path_kernels(cfg)
+    want = {"flash_attention": L * prefill_calls, "ssd": L * prefill_calls,
+            "paged_attention": L * len(decodes)}
+    want = {n: want[n] if n in kernels else 0 for n in want}
     if not (len(done) == n_req
             and all(len(r.generated) == max_new for r in done)
-            and launches["flash_attention"] == L * prefill_calls
-            and launches["paged_attention"] == L * len(decodes)
+            and launches == want and all(want[n] > 0 for n in kernels)
             and {0, 1} <= set(report["routed"])):
-        raise AssertionError(f"full-width serve incomplete: {res}")
+        raise AssertionError(f"full-width serve incomplete: {res}, "
+                             f"launches wanted {want}")
     return launches
 
 
@@ -292,6 +372,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -309,8 +390,12 @@ def main() -> int:
                     for n, log in logs.items()}})
 
     cases = check_kernels()
-    check_reduced()
-    launches = serve_full_width()
+    for arch in ("llama3.1-8b", "mamba2-1.3b"):
+        check_reduced(arch)
+    launches = {}
+    for arch in ("llama3.1-8b", "mamba2-1.3b"):
+        ran = serve_full_width(arch)
+        launches.update({n: ran[n] for n in path_kernels(get_config(arch))})
 
     def line(name, route, source, replaces, row):
         return {"name": name, "route": route, "source": source,
@@ -319,11 +404,14 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "at": {k: row[k] for k in row if k in
-                       ("B", "Lq", "Lk", "dtype", "ctx_sum", "ctx_max")}}
+                       ("B", "L", "Lq", "Lk", "dtype", "ctx_sum",
+                        "ctx_max")}}
     paged = next(r for r in cases["paged_attention"]
                  if r["dtype"] == "bfloat16" and r["B"] == 8)
     flash = next(r for r in cases["flash_attention"]
                  if r["dtype"] == "bfloat16" and r["Lq"] == 2000)
+    scan = next(r for r in cases["ssd"]
+                if r["dtype"] == "bfloat16" and r["L"] == 2048)
     emit({"kernels": [
         line("paged_attention", "cuda",
              "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
@@ -331,9 +419,9 @@ def main() -> int:
         line("flash_attention", "cuda",
              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/flash_attention.py:23", flash),
-    ], "not_ported": [{"name": "ssd", "replaces":
-                       "src/repro/kernels/ssd/ssd.py:20",
-                       "status": "not_ported"}]})
+        line("ssd", "cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+             "src/repro/kernels/ssd/ssd.py:20", scan),
+    ], "not_ported": []})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

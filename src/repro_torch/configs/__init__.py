@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` for the
-dense full-attention testbed backends (counterpart of
-``repro/configs/__init__.py:41-45``).  Other architectures wait for the
-slices that port their mixers."""
+dense full-attention testbed backends and the attention-free Mamba-2
+model (counterpart of ``repro/configs/__init__.py:41-45``).  Other
+architectures wait for the slices that port their mixers."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +12,7 @@ from repro_torch.configs.base import (BlockSpec, ModelConfig, Stage,
 _REGISTRY = {
     "llama3.1-8b": "llama31_8b",
     "qwen2.5-14b": "qwen25_14b",
+    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)

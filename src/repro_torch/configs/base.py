@@ -70,6 +70,12 @@ class SSMConfig:
     n_groups: int = 1
     chunk: int = 256
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:

@@ -8,12 +8,16 @@ events deque.  Deliberate differences:
 
 * decode attends over a paged KV cache (``PagedKVCache``) through the paged
   kernel and runs only the active rows; the JAX engine decodes every slot
-  of a dense per-slot ring cache;
+  of a dense per-slot ring cache.  The engine holds pages only for
+  attention layers and per-slot states (``SSMStateCache``) only for mamba
+  layers; decode updates the active slots' states in place;
 * chunked prefill stages into a linear K/V buffer, as the JAX engine does,
   and flash attention sees it cut to ``pos0 + C`` rows.  When the prompt is
   complete its rows are copied into freshly allocated pages: for full
   attention that is what ``ring_convert_cache`` reduces to;
-* ``checkpoint_request`` also releases the request's pages;
+* ``checkpoint_request`` also releases the request's pages; its state
+  slot is free once the engine's ``slots`` entry is, and the next prefill
+  there overwrites it;
 * every timing event synchronizes the device before the clock is read, so
   it times the work and not its launch (the JAX engine reads the clock
   before the jitted decode has finished);
@@ -36,8 +40,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine.kv_cache import PagedKVCache
+from repro_torch.engine.state_cache import SSMStateCache
 from repro_torch.models.model import (Model, decode_step, init_cache,
-                                      init_params, prefill, prefill_chunk)
+                                      init_params, layer_caches, prefill,
+                                      prefill_chunk)
 
 
 @dataclasses.dataclass
@@ -55,7 +61,8 @@ class EngineRequest:
 
 
 class InferenceEngine:
-    """Continuous-batching engine: ``max_batch`` slots over one paged cache."""
+    """Continuous-batching engine: ``max_batch`` slots over one paged KV
+    cache (attention layers) and one per-slot state cache (mamba layers)."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Model] = None, *,
                  max_batch: int = 8, max_len: int = 256, seed: int = 0,
@@ -73,15 +80,20 @@ class InferenceEngine:
             raise ValueError(f"weights on {params.device}, engine on "
                              f"{self.device}")
         self.params = params
+        self._layer_caches = layer_caches(cfg)
+        kinds = {kind for kind, _ in self._layer_caches}
         if num_pages is None:
             num_pages = max_batch * -(-max_len // page_size)
-        self.cache = PagedKVCache(cfg, num_pages, page_size,
-                                  dtype=params.dtype, device=self.device)
+        self.cache = (PagedKVCache(cfg, num_pages, page_size,
+                                   dtype=params.dtype, device=self.device)
+                      if "kv" in kinds else None)
+        self.states = (SSMStateCache(cfg, max_batch, dtype=params.dtype,
+                                     device=self.device)
+                       if "ssm" in kinds else None)
         self.slots: List[Optional[EngineRequest]] = [None] * max_batch
         self.queue: List[EngineRequest] = []
         # chunked prefill: only full/window mixers are chunk-resumable
-        chunkable = all(blk.mixer in ("full", "window")
-                        for blk in cfg.layer_list())
+        chunkable = {b.mixer for b in cfg.layer_list()} <= {"full", "window"}
         self.prefill_chunk = (prefill_chunk
                               if (prefill_chunk and chunkable) else None)
         # one request staged at a time, into one reused linear buffer
@@ -109,16 +121,15 @@ class InferenceEngine:
 
     def checkpoint_request(self, rid: int) -> Optional[EngineRequest]:
         """Token-ID snapshot of an in-flight request (migration / failure
-        resubmission): frees its slot and pages, returns the portable
-        state."""
+        resubmission): frees its slot (and with it its mamba state) and its
+        pages, returns the portable state."""
         if self._staging is not None and self._staging["req"].rid == rid:
             req = self._staging["req"]
             self._staging = None        # partial prefill is discarded:
             return req                  # token IDs re-prefill at the target
         for i, r in enumerate(self.slots):
             if r is not None and r.rid == rid:
-                self.slots[i] = None
-                self.cache.release(i)
+                self._free(i)
                 return r
         for r in self.queue:
             if r.rid == rid:
@@ -148,13 +159,18 @@ class InferenceEngine:
         return logits.argmax(dim=-1).tolist()
 
     def _to_pages(self, slot: int, kv_rows):
-        """Allocate pages for ``slot`` and write per-layer (k, v) rows
-        [n, KV, hd] into them."""
+        """Allocate pages for ``slot`` and write per-attention-layer (k, v)
+        rows [n, KV, hd] into them."""
         n = kv_rows[0][0].shape[0]
         self.cache.allocate(slot, n)
         idx = self.cache.token_index(slot, 0, n)
         for layer, (k, v) in enumerate(kv_rows):
             self.cache.write(layer, idx, k, v)
+
+    def _free(self, slot: int):
+        self.slots[slot] = None
+        if self.cache is not None:
+            self.cache.release(slot)
 
     # -- admission: one-shot and chunked prefill ------------------------------
 
@@ -168,8 +184,15 @@ class InferenceEngine:
                                     self._clock() - t0))
 
     def _prefill_into_slot(self, slot: int, req: EngineRequest):
-        logits, kv = prefill(self.params, self._tokens(req.tokens)[None])
-        self._to_pages(slot, [(k[0], v[0]) for k, v in kv])
+        logits, states = prefill(self.params, self._tokens(req.tokens)[None])
+        kv = [(a[0], b[0]) for (kind, _), (a, b)
+              in zip(self._layer_caches, states) if kind == "kv"]
+        ssm = [({k: v[0] for k, v in a.items()}, b[0]) for (kind, _), (a, b)
+               in zip(self._layer_caches, states) if kind == "ssm"]
+        if self.cache is not None:
+            self._to_pages(slot, kv)
+        if self.states is not None:
+            self.states.write(slot, ssm)
         req.tokens.append(self._greedy(logits)[0])
         self.slots[slot] = req
 
@@ -213,11 +236,14 @@ class InferenceEngine:
             return 0
         toks = self._tokens([self.slots[i].tokens[-1] for i in active])
         t0 = self._clock()
-        for i in active:
-            self.cache.extend(i, 1)
-        bt, lens = self.cache.batch_tables(active)
-        logits = decode_step(self.params, self.cache.k_pages,
-                             self.cache.v_pages, toks, bt, lens)
+        cache = {}
+        if self.cache is not None:
+            for i in active:
+                self.cache.extend(i, 1)
+            cache.update(self.cache.decode_view(active))
+        if self.states is not None:
+            cache.update(self.states.decode_view(active))
+        logits = decode_step(self.params, toks, cache)
         self.events.append(("decode", len(active), self._clock() - t0))
         for i, nxt in zip(active, self._greedy(logits)):
             req = self.slots[i]
@@ -227,8 +253,7 @@ class InferenceEngine:
             if full or (req.eos_id is not None and nxt == req.eos_id):
                 req.done = True
                 self.completed.append(req)
-                self.slots[i] = None
-                self.cache.release(i)
+                self._free(i)
         return len(active)
 
     def run_until_drained(self, max_iters: int = 10000):

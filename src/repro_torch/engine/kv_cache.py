@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.model import layer_caches
 
 
 class PagedKVCache:
@@ -29,7 +30,7 @@ class PagedKVCache:
         self.page_size = page_size
         self.device = resolve_device(device)
         self.n_attn_layers = sum(
-            1 for b in cfg.layer_list() if b.mixer in ("full", "window"))
+            1 for kind, _ in layer_caches(cfg) if kind == "kv")
         shp = (self.n_attn_layers, num_pages, page_size, cfg.num_kv_heads,
                cfg.head_dim)
         self.k_pages = torch.zeros(shp, dtype=dtype, device=self.device)
@@ -83,6 +84,13 @@ class PagedKVCache:
         lens = np.array([self.lens[r] for r in rids], np.int32)
         return (torch.from_numpy(bt).to(self.device),
                 torch.from_numpy(lens).to(self.device))
+
+    def decode_view(self, rids: List[int]) -> dict:
+        """The attention layers' part of ``models.decode_step``'s cache for
+        the batch ``rids``."""
+        bt, lens = self.batch_tables(rids)
+        return {"k_pages": self.k_pages, "v_pages": self.v_pages,
+                "block_tables": bt, "context_lens": lens}
 
     def token_index(self, rid: int, start: int, n: int) -> torch.Tensor:
         """Flat row indices (page * page_size + slot) of positions

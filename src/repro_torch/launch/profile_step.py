@@ -1,7 +1,8 @@
-"""Trace engine steps of full-width llama3.1-8b on the card.
+"""Trace engine steps of a full-width model on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step \\
-      [--batch 8] [--prompt 1024] [--steps 5] [--out build/profile_step]
+      [--arch llama3.1-8b|mamba2-1.3b] [--batch 8] [--prompt 1024] \\
+      [--steps 5] [--out build/profile_step]
 
 One engine (bf16, random weights from a seed) admits ``--batch`` requests
 of ``--prompt`` tokens one-shot; the admission step is traced as prefill.

@@ -4,7 +4,9 @@
 which torch cannot reproduce, so this bridge is how both packages compute
 with the same weights.  The JAX tree holds ``embed``, ``final_norm``,
 ``lm_head`` and a ``stages`` list; each stage maps ``blk{i}`` to that
-pattern slot's ``attn``/``ffn`` dicts with a leading repeat axis.  The
+pattern slot's ``attn``, ``mixer`` (mamba) and ``ffn`` dicts, whichever the
+layer has, with a leading repeat axis.  Leaves keep their dtype: a bf16
+tree's ``A_log``, ``D`` and ``dt_bias`` stay float32.  The
 caller hands the tree over as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 """
@@ -46,12 +48,10 @@ def from_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> Model:
         for r in range(stage.repeat):
             for pi, spec in enumerate(stage.pattern):
                 leaf = sp[f"blk{pi}"]
-                blocks.append(Block(
-                    spec,
-                    frozen({k: _to_tensor(np.asarray(a)[r], dev)
-                            for k, a in leaf["attn"].items()}),
-                    frozen({k: _to_tensor(np.asarray(a)[r], dev)
-                            for k, a in leaf["ffn"].items()})))
+                blocks.append(Block(spec, **{
+                    part: frozen({k: _to_tensor(np.asarray(a)[r], dev)
+                                  for k, a in leaf[part].items()})
+                    for part in ("attn", "mixer", "ffn") if part in leaf}))
     return Model(cfg, frozen(top), blocks)
 
 
@@ -70,7 +70,7 @@ def to_numpy_tree(model: Model) -> dict:
                 part: {k: np.stack([_to_numpy(getattr(b, part)[k])
                                     for b in reps])
                        for k in getattr(reps[0], part)}
-                for part in ("attn", "ffn")}
+                for part in reps[0].parts}
         stages.append(sp)
     out["stages"] = stages
     return out

@@ -40,11 +40,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.engine.engine import InferenceEngine
     from repro_torch.engine.kv_cache import PagedKVCache
+    from repro_torch.engine.state_cache import SSMStateCache
     from repro_torch.launch.serve import main
     from repro_torch.models.model import init_params
     cfg = reduce_config(get_config("llama3.1-8b"))
+    mamba = reduce_config(get_config("mamba2-1.3b"))
     for make in (lambda: InferenceEngine(cfg), lambda: init_params(cfg),
-                 lambda: PagedKVCache(cfg, 4),
+                 lambda: PagedKVCache(cfg, 4), lambda: SSMStateCache(mamba, 2),
+                 lambda: InferenceEngine(mamba),
                  lambda: main(["--size", "reduced", "--n-requests", "1"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
@@ -55,7 +58,10 @@ def test_wrappers_on_cpu_run_plain_versions_and_launch_nothing():
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    f0, p0 = flash_attention.launches, paged_attention.launches
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    f0, p0, s0 = (flash_attention.launches, paged_attention.launches,
+                  ssd.launches)
     g = torch.Generator().manual_seed(0)
     q = torch.randn(1, 20, 4, 32, generator=g)
     k = torch.randn(1, 30, 2, 32, generator=g)
@@ -66,7 +72,14 @@ def test_wrappers_on_cpu_run_plain_versions_and_launch_nothing():
             torch.tensor([[3, 1, 4]], dtype=torch.int32),
             torch.tensor([19], dtype=torch.int32))
     assert torch.equal(paged_attention(*args), paged_attention_ref(*args))
-    assert (flash_attention.launches, paged_attention.launches) == (f0, p0)
+    x = torch.randn(1, 32, 4, 16, generator=g)
+    dt = torch.rand(1, 32, 4, generator=g)
+    bc = torch.randn(1, 32, 1, 16, generator=g)
+    sargs = (x, dt, -torch.ones(4), bc, -bc)
+    for a, b in zip(ssd(*sargs, chunk=16), ssd_ref(*sargs, chunk=16)):
+        assert torch.equal(a, b)
+    assert (flash_attention.launches, paged_attention.launches,
+            ssd.launches) == (f0, p0, s0)
 
 
 def test_kernel_modules_import_without_nvcc():

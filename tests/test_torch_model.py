@@ -128,12 +128,11 @@ def test_decode_steps_over_paged_cache(bridged):
                                     jnp.asarray(nxt[:, None], jnp.int32))
         for b in range(2):
             cache.extend(b, 1)
-        bt, lens = cache.batch_tables([0, 1])
-        tl = TM.decode_step(model, cache.k_pages, cache.v_pages,
-                            torch.tensor(nxt, dtype=torch.long), bt, lens)
+        view = cache.decode_view([0, 1])
+        tl = TM.decode_step(model, torch.tensor(nxt, dtype=torch.long), view)
         np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
         nxt = np.asarray(jnp.argmax(jl, axis=-1))
-    assert list(_np(lens)) == [16, 16]
+    assert list(_np(view["context_lens"])) == [16, 16]
 
 
 def test_unported_mixers_raise():
@@ -145,4 +144,4 @@ def test_unported_mixers_raise():
     with pytest.raises(NotImplementedError):
         TM.init_params(win, device="cpu")
     with pytest.raises(KeyError, match="supported"):
-        get_config("mamba2-1.3b")
+        get_config("jamba-v0.1-52b")
