@@ -6,17 +6,25 @@
 Needs one CUDA card (written for an H100) and ``nvcc``; imports nothing of
 JAX.  Phases, each printing one JSON line:
 
-1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, and the
+1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, the
    build of every kernel from ``src/repro_torch/kernels/*/csrc`` (three:
-   paged decode, flash attention, SSD scan);
+   paged decode, flash attention, SSD scan), ptxas's registers and spills,
+   and the count of tensor-core instructions (``HGMMA``, ``HMMA``) that
+   ``cuobjdump -sass`` finds in the flash library, where the toolkit has
+   ``cuobjdump``;
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the main paths' shapes, with its time, the plain version's, one PyTorch
+   the main paths' shapes, with its time (device time: the timed calls are
+   replayed from a CUDA graph), the plain version's, one PyTorch
    library call's where one computes the same function
    (``scaled_dot_product_attention`` on the attention inputs made dense, a
    yardstick the port never calls; none computes the SSD scan) and the
    bound: the larger of the bytes moved over 3.35 TB/s and the flops over
    the peak rate for the arithmetic's type (989 TFLOP/s bf16 tensor cores,
    67 TFLOP/s fp32).  Attention: fp32 max abs err <= 1e-4, bf16 <= 2e-2.
+   Flash attention also runs small untimed shapes that reach every branch
+   of its two CUDA kernels (``FLASH_BRANCHES``: head dims, groupings,
+   ragged edges, window, softcap, non-causal, a k/v prefix of a longer
+   buffer, and one shape each routed to the fp32 FMA kernel).
    SSD: both input types are computed in fp32 by the kernel and the plain
    version alike, so both are held to 1e-4 of the plain output's largest
    magnitude, with dt and A drawn as the model draws them so that terms
@@ -61,15 +69,24 @@ def emit(obj) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls are captured in a
+    CUDA graph and the graph is replayed between two events, so that the
+    host's cost of issuing them (Python, the ctypes wrappers) is not
+    counted where it exceeds a call's device time."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -83,6 +100,21 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def tensor_core_count(name: str) -> dict:
+    """Tensor-core instructions in the SASS of kernel library ``name``:
+    ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync), as ``cuobjdump -sass`` reads
+    them, or why they were not counted."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return {"counted": False, "why": f"no {tool} in this toolkit"}
+    sass = subprocess.run([str(tool), "-sass",
+                           str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {"counted": True, "HGMMA": sass.count("HGMMA"),
+            "HMMA": sass.count("HMMA")}
 
 
 # ---------------------------------------------------------------------------
@@ -139,17 +171,36 @@ def paged_case(B: int, dtype_name: str, seed: int):
     }
 
 
-def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int):
+def _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len=None):
+    """q [B, Lq, H, hd] and k/v [B, Lk, KV, hd] on the card.  With
+    ``buf_len`` > Lk, k/v are the prefix ``buf[:, :Lk]`` of a longer
+    buffer, as ``attn_chunk`` passes them, and the rows past Lk are NaN: a
+    kernel that read them would turn its output NaN."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, H, KV, hd = 1, 32, 8, 128
     dt = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((B, Lq, H, hd), generator=g, device="cuda").to(dt)
-    k = torch.randn((B, Lk, KV, hd), generator=g, device="cuda").to(dt)
-    v = torch.randn((B, Lk, KV, hd), generator=g, device="cuda").to(dt)
+    S = buf_len or Lk
+    kv = [torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
+          for _ in range(2)]
+    for t in kv:
+        t[:, Lk:] = float("nan")
+    return q, kv[0][:, :Lk], kv[1][:, :Lk]
+
+
+def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int):
+    """llama3.1-8b's prefill attention (H=32 over KV=8, hd=128), timed.
+    ``library_ms`` is SDPA with ``is_causal=True`` and no mask where Lq = Lk,
+    so that PyTorch may take its flash backend; ``is_causal`` aligns
+    top-left, so the chunk shape (Lq < Lk) keeps the explicit bottom-right
+    mask.  ``library_masked_ms`` is the masked call at every shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (cuda_kernel,
+                                                         flash_attention)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, H, KV, hd = 1, 32, 8, 128
+    q, k, v = _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed)
     out = flash_attention(q, k, v, causal=True)
     ref = attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -164,15 +215,54 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int):
     vh = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
     qi = torch.arange(Lq, device="cuda")[:, None] + off
     mask = torch.arange(Lk, device="cuda")[None] <= qi
+    masked_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask))
+    library_ms = masked_ms if Lq != Lk else time_ms(
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
     return {
-        "Lq": Lq, "Lk": Lk, "dtype": dtype_name, "max_abs_err": err,
+        "Lq": Lq, "Lk": Lk, "dtype": dtype_name,
+        "route": cuda_kernel(q.dtype, hd), "max_abs_err": err,
         "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
         "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True),
                             iters=3),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask)),
+        "library_ms": library_ms, "library_masked_ms": masked_ms,
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+# Small untimed shapes that reach every branch of the two flash kernels:
+# (B, Lq, Lk, H, KV, hd, dtype, keyword arguments, k/v buffer length)
+FLASH_BRANCHES = [
+    (1, 256, 256, 8, 8, 64, "bfloat16", {}, None),            # hd 64, G = 1
+    (1, 256, 256, 8, 8, 128, "bfloat16", {}, None),           # hd 128, G = 1
+    (1, 300, 300, 40, 8, 128, "bfloat16", {}, None),          # G = 5
+    (1, 17, 17, 4, 1, 128, "bfloat16", {}, None),             # ragged, G = 4
+    (1, 9, 25, 4, 2, 64, "bfloat16", {}, None),               # ragged chunk
+    (1, 300, 300, 8, 2, 128, "bfloat16", {"window": 40}, None),
+    (1, 200, 264, 8, 2, 128, "bfloat16", {"softcap": 30.0}, None),
+    (1, 130, 300, 8, 2, 64, "bfloat16", {"causal": False}, None),
+    (1, 130, 300, 8, 2, 128, "bfloat16",
+     {"causal": False, "window": 50}, None),
+    (2, 77, 333, 8, 2, 128, "bfloat16", {}, 700),             # prefix
+    (2, 200, 450, 8, 2, 64, "bfloat16", {}, 600),             # prefix
+    (2, 77, 333, 8, 2, 128, "float32", {}, 700),              # fma: fp32
+    (1, 256, 256, 4, 2, 32, "bfloat16", {}, None),            # fma: hd 32
+]
+
+
+def flash_branch_case(B, Lq, Lk, H, KV, hd, dtype_name, kw, buf_len, seed):
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (cuda_kernel,
+                                                         flash_attention)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    q, k, v = _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len)
+    out = flash_attention(q, k, v, **kw)
+    ref = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    return {"B": B, "Lq": Lq, "Lk": Lk, "H": H, "KV": KV, "hd": hd,
+            "dtype": dtype_name, **kw, "buf_len": buf_len,
+            "route": cuda_kernel(q.dtype, hd),
+            "max_abs_err": max_err(out, ref)}
 
 
 def ssd_case(L: int, dtype_name: str, seed: int):
@@ -238,6 +328,12 @@ def check_kernels():
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {r}")
+    for i, shape in enumerate(FLASH_BRANCHES):
+        r = flash_branch_case(*shape, seed=100 + i)
+        emit({"phase": "kernel_branch", "name": "flash_attention", **r})
+        if not r["max_abs_err"] <= TOL[r["dtype"]]:   # NaN fails too
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version: {r}")
     return cases
 
 
@@ -386,8 +482,10 @@ def main() -> int:
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "build_s": time.perf_counter() - t0,
           "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n, log in logs.items()}})
+                        if "registers" in ln or "spill" in ln
+                        or "Performance Loss" in ln]
+                    for n, log in logs.items()},
+          "flash_sass": tensor_core_count("flash_attention")})
 
     cases = check_kernels()
     for arch in ("llama3.1-8b", "mamba2-1.3b"):

@@ -94,6 +94,11 @@ def build_all() -> Dict[str, str]:
         return logs
 
 
+def library_path(name: str) -> Path:
+    """Where the built library of kernel package ``name`` lies (or will)."""
+    return _build_dir(kernel_sources()) / f"lib{name}.so"
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel package ``name``, built on first use."""
     if name not in _libs:

@@ -3,6 +3,9 @@
 Counterpart of ``repro/kernels/flash_attention/ops.py`` (the jit wrapper
 of ``flash_attention_pallas``).  A CUDA tensor launches the hand-written
 kernel or raises; a CPU tensor takes the plain version in ``ref.py``.
+The C entry point picks the CUDA kernel by dtype and head dim
+(:func:`cuda_kernel` reports which): bf16 at hd 64 or 128 runs on the
+tensor cores (wgmma, TMA), everything else on the fp32 FMA kernel.
 ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -78,3 +81,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+
+
+def cuda_kernel(dtype, hd: int) -> str:
+    """Which CUDA kernel a call with this dtype and head dim launches:
+    ``"wgmma"`` (tensor cores) or ``"fma"`` (fp32 CUDA cores), as the C
+    entry point decides.  Builds the library on first use."""
+    f = _build.entry("flash_attention", "flash_attention_uses_wgmma",
+                     [_I, _I])
+    return "wgmma" if f(int(dtype == torch.bfloat16), hd) else "fma"

@@ -68,6 +68,31 @@ def test_plain_flash_softcap(causal):
     np.testing.assert_allclose(_f32(out), _f32(ref), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_plain_flash_reads_a_prefix_of_a_longer_buffer(name):
+    """``attn_chunk`` passes k/v as ``buf[:, :n]`` of a longer staging
+    buffer: the batch stride is the buffer's, and rows past n hold stale
+    values (NaN here) that must not reach the output.  The CUDA kernels'
+    tensor maps take their L extent and batch stride from this layout."""
+    B, Lq, n, S, H, KV, hd = 2, 24, 72, 120, 4, 2, 64
+    rng = np.random.default_rng(3)
+    tdt, _ = DTYPES[name]
+    q, jq = _pair(rng.standard_normal((B, Lq, H, hd)).astype(np.float32), name)
+    bufs = []
+    for _ in range(2):
+        buf = rng.standard_normal((B, S, KV, hd)).astype(np.float32)
+        buf[:, n:] = np.nan
+        bufs.append(torch.from_numpy(buf).to(tdt))
+    k, v = (b[:, :n] for b in bufs)
+    assert k.stride(0) == S * KV * hd and not k.is_contiguous()
+    out = flash_attention(q, k, v)
+    jk, jv = (jnp.asarray(t.float().numpy()).astype(DTYPES[name][1])
+              for t in (k, v))
+    ref = jax_attn(jq, jk, jv)
+    assert np.isfinite(_f32(out)).all()
+    np.testing.assert_allclose(_f32(out), _f32(ref), **_tol(name))
+
+
 def _paged_inputs(B, H, KV, hd, page, npg, P, name, seed=0, ctx=None):
     rng = np.random.default_rng(seed)
     q = _pair(rng.standard_normal((B, H, hd)).astype(np.float32), name)
