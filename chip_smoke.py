@@ -21,10 +21,22 @@ JAX.  Phases, each printing one JSON line:
    bound: the larger of the bytes moved over 3.35 TB/s and the flops over
    the peak rate for the arithmetic's type (989 TFLOP/s bf16 tensor cores,
    67 TFLOP/s fp32).  Attention: fp32 max abs err <= 1e-4, bf16 <= 2e-2.
-   Flash attention also runs small untimed shapes that reach every branch
-   of its two CUDA kernels (``FLASH_BRANCHES``: head dims, groupings,
-   ragged edges, window, softcap, non-causal, a k/v prefix of a longer
-   buffer, and one shape each routed to the fp32 FMA kernel).
+   The paged decode kernel runs in two passes (splits of each sequence,
+   then their merge); its lines print the partition (splits per sequence,
+   split length, blocks of the first pass).  Its B=1 rows are timed over
+   six page pools and block tables in turn, more than the 50 MB L2, so
+   each call reads cold K/V as each layer of a decode step does
+   (``ms_warm_l2`` repeats one pool); the library call is timed the same
+   way.  It also runs small untimed shapes (``PAGED_BRANCHES``: groupings
+   1, 4, 5, 7 and 8, head dims 64 and 128, pages of 8, 16 and 32, fp32
+   and bf16, ctx 0, 1, one page, one token either side of a split
+   boundary, a table within one split, B=1 over many splits).  Their
+   padded table entries point at a page that no row names, and every such
+   page, and every slot past ctx, holds NaN: a kernel that read one would
+   fail.  Flash attention also runs small untimed shapes that reach every
+   branch of its two CUDA kernels (``FLASH_BRANCHES``: head dims,
+   groupings, ragged edges, window, softcap, non-causal, a k/v prefix of
+   a longer buffer, and one shape each routed to the fp32 FMA kernel).
    SSD: both input types are computed in fp32 by the kernel and the plain
    version alike, so both are held to 1e-4 of the plain output's largest
    magnitude, with dt and A drawn as the model draws them so that terms
@@ -48,6 +60,7 @@ without that last line, as does a machine without a CUDA device.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import statistics
@@ -62,6 +75,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+COLD_POOLS = 6     # B=1 paged pools timed in turn: 6 x 16.8 MB in bf16 > L2
 
 
 def emit(obj) -> None:
@@ -122,53 +136,142 @@ def tensor_core_count(name: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def paged_case(B: int, dtype_name: str, seed: int):
+    """llama3.1-8b's decode attention (H=32 over KV=8, hd=128, page 16)
+    over tables of 4096 token slots, timed.  At B=1 the timed calls cycle
+    over ``COLD_POOLS`` page pools and tables, as do the library calls."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                         partition, sm_count)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     H, KV, hd, page, max_ctx = 32, 8, 128, 16, 4096
     dt = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(seed)
     n_pages = max_ctx // page
     P = B * n_pages
-    q = torch.randn((B, H, hd), generator=g, device="cuda").to(dt)
-    kp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
-    vp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
-    bt = torch.randperm(P, generator=g, device="cuda").to(torch.int32)
-    bt = bt.view(B, n_pages).contiguous()
-    ctx = torch.randint(1, max_ctx + 1, (B,), generator=g, device="cuda")
-    if B > 1:
-        ctx[0], ctx[1] = 0, max_ctx        # an empty sequence and a full one
-    ctx = ctx.to(torch.int32)
-    args = (q, kp, vp, bt, ctx)
+    S = n_pages * page
+    pools, dense = [], []
+    for i in range(COLD_POOLS if B == 1 else 1):
+        q = torch.randn((B, H, hd), generator=g, device="cuda").to(dt)
+        kp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
+        vp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
+        bt = torch.randperm(P, generator=g, device="cuda").to(torch.int32)
+        bt = bt.view(B, n_pages).contiguous()
+        if i == 0:
+            ctx = torch.randint(1, max_ctx + 1, (B,), generator=g,
+                                device="cuda")
+            if B > 1:
+                ctx[0], ctx[1] = 0, max_ctx   # an empty sequence, a full one
+            ctx = ctx.to(torch.int32)
+            mask = (torch.arange(S, device="cuda")[None]
+                    < ctx.long()[:, None])[:, None, None, :]
+        pools.append((q, kp, vp, bt, ctx))
+        # the library yardstick: SDPA over the same K/V gathered dense
+        kd = kp[bt.long()].reshape(B, S, KV, hd).transpose(1, 2)
+        vd = vp[bt.long()].reshape(B, S, KV, hd).transpose(1, 2)
+        dense.append((q[:, :, None], kd.repeat_interleave(H // KV, dim=1),
+                      vd.repeat_interleave(H // KV, dim=1)))
+    args = pools[0]
     out = paged_attention(*args)
     ref = paged_attention_ref(*args)
     torch.cuda.synchronize()
     err = max_err(out, ref)
     if B > 1 and out[0].abs().max().item() != 0.0:
         raise AssertionError("paged kernel: ctx=0 row is not zeros")
-    # the library yardstick: SDPA over the same K/V gathered dense
-    S = n_pages * page
-    kd = kp[bt.long()].reshape(B, S, KV, hd).transpose(1, 2)
-    vd = vp[bt.long()].reshape(B, S, KV, hd).transpose(1, 2)
-    kd = kd.repeat_interleave(H // KV, dim=1)
-    vd = vd.repeat_interleave(H // KV, dim=1)
-    mask = (torch.arange(S, device="cuda")[None] < ctx.long()[:, None])
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None]
     tot = int(ctx.long().sum())
-    es = q.element_size()
+    es = args[0].element_size()
     nbytes = es * (2 * tot * KV * hd + 2 * B * H * hd) + 4 * (B * n_pages + B)
     b_ms, b_by = bound(nbytes, 4.0 * H * hd * tot, dtype_name)
-    return {
+    splits, split_tokens = partition(B, KV, n_pages, page, sm_count(
+        args[0].device))
+    turn = itertools.cycle(range(len(pools)))
+    lib_turn = itertools.cycle(range(len(pools)))
+    row = {
         "B": B, "dtype": dtype_name, "ctx_sum": tot,
-        "ctx_max": int(ctx.max()), "max_abs_err": err,
-        "ms": time_ms(lambda: paged_attention(*args)),
+        "ctx_max": int(ctx.max()), "splits": splits,
+        "split_tokens": split_tokens, "blocks": KV * B * splits,
+        "pools": len(pools), "max_abs_err": err,
+        "ms": time_ms(lambda: paged_attention(*pools[next(turn)])),
         "plain_ms": time_ms(lambda: paged_attention_ref(*args), iters=5),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask)),
+            *dense[next(lib_turn)], attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    if len(pools) > 1:
+        row["ms_warm_l2"] = time_ms(lambda: paged_attention(*args))
+        row["library_warm_l2_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(*dense[0], attn_mask=mask))
+    return row
+
+
+# Small untimed shapes that reach every branch of the paged kernel:
+# (B, H, KV, hd, page, n_pages, dtype, context lengths); "split-1" and
+# "split+1" are one token either side of the first split boundary that
+# ``partition`` picks on this card.
+PAGED_BRANCHES = [
+    (4, 8, 8, 128, 16, 64, "bfloat16", [0, 1, 16, 1024]),            # G = 1
+    (3, 32, 8, 128, 16, 48, "float32", ["split-1", "split+1", 1]),   # G = 4
+    (2, 40, 8, 128, 32, 24, "bfloat16", ["split+1", 32]),            # G = 5
+    (3, 14, 2, 64, 8, 100, "bfloat16", ["split-1", "split+1", 8]),   # G = 7
+    (2, 64, 8, 128, 16, 16, "float32", [256, 100]),        # G = 8, 1 split
+    (1, 32, 8, 128, 16, 256, "bfloat16", [4000]),          # B = 1, 16 splits
+    (2, 8, 8, 64, 32, 40, "float32", [0, 1280]),
+    (2, 16, 2, 64, 16, 20, "bfloat16", [0, 320]),          # G = 8, 1 split
+    (1, 10, 2, 64, 8, 64, "float32", ["split-1"]),
+    (2, 56, 8, 128, 16, 40, "float32", ["split+1", 16]),
+]
+
+
+def paged_branch_case(B, H, KV, hd, page, n_pages, dtype_name, ctxs, seed):
+    """One ``PAGED_BRANCHES`` shape against the plain version.  Page 0 is
+    the pad page that short rows' table entries name, as the engine pads;
+    it and every other page that no row's first ceil(ctx/page) entries
+    name are NaN, and so is every slot of a row's last page past its ctx.
+    The plain version, which multiplies masked rows by 0, reads the same
+    pools without the NaN."""
+    import torch
+    from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                         partition, sm_count)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    splits, split_tokens = partition(B, KV, n_pages, page,
+                                     sm_count(torch.device("cuda", 0)))
+    near = {"split-1": split_tokens - 1, "split+1": split_tokens + 1}
+    if any(c in near for c in ctxs) and splits < 2:
+        raise AssertionError(f"paged branch {ctxs} has one split")
+    ctx = [near.get(c, c) for c in ctxs]
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator().manual_seed(seed)
+    P = B * n_pages + 1
+    q = torch.randn((B, H, hd), generator=g).to(dt)
+    kp = torch.randn((P, page, KV, hd), generator=g).to(dt)
+    vp = torch.randn((P, page, KV, hd), generator=g).to(dt)
+    free = (torch.randperm(P - 1, generator=g) + 1).tolist()
+    bt = torch.zeros((B, n_pages), dtype=torch.int32)
+    named = torch.zeros(P, dtype=torch.bool)
+    k_nan, v_nan = kp.clone(), vp.clone()
+    for b, c in enumerate(ctx):
+        used = -(-c // page)
+        bt[b, :used] = torch.tensor(free[b * n_pages:b * n_pages + used],
+                                    dtype=torch.int32)
+        named[bt[b, :used].long()] = True
+        if c % page:
+            k_nan[bt[b, used - 1], c % page:] = float("nan")
+            v_nan[bt[b, used - 1], c % page:] = float("nan")
+    k_nan[~named] = float("nan")
+    v_nan[~named] = float("nan")
+    ctx_t = torch.tensor(ctx, dtype=torch.int32)
+    cuda = [t.to("cuda") for t in (q, k_nan, v_nan, kp, vp, bt, ctx_t)]
+    q, k_nan, v_nan, kp, vp, bt, ctx_t = cuda
+    out = paged_attention(q, k_nan, v_nan, bt, ctx_t)
+    ref = paged_attention_ref(q, kp, vp, bt, ctx_t)
+    torch.cuda.synchronize()
+    empty = [b for b, c in enumerate(ctx) if c == 0]
+    return {"B": B, "H": H, "KV": KV, "hd": hd, "page": page,
+            "n_pages": n_pages, "dtype": dtype_name, "ctx": ctx,
+            "splits": splits, "split_tokens": split_tokens,
+            "blocks": KV * B * splits, "max_abs_err": max_err(out, ref),
+            "ctx0_rows_zero": all(out[b].abs().max().item() == 0.0
+                                  for b in empty)}
 
 
 def _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len=None):
@@ -328,6 +431,13 @@ def check_kernels():
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {r}")
+    for i, shape in enumerate(PAGED_BRANCHES):
+        r = paged_branch_case(*shape, seed=200 + i)
+        emit({"phase": "kernel_branch", "name": "paged_attention", **r})
+        if not (r["max_abs_err"] <= TOL[r["dtype"]]   # NaN fails too
+                and r["ctx0_rows_zero"]):
+            raise AssertionError(f"paged_attention disagrees with its plain "
+                                 f"version: {r}")
     for i, shape in enumerate(FLASH_BRANCHES):
         r = flash_branch_case(*shape, seed=100 + i)
         emit({"phase": "kernel_branch", "name": "flash_attention", **r})

@@ -1,6 +1,6 @@
 // Element helpers shared by the port's kernels: 16-byte vector loads that
-// widen fp32 or bf16 to float, scalar conversions, warp reductions, and the
-// error-string entry every kernel library exports.
+// widen fp32 or bf16 to float, stores that narrow float to fp32 or bf16, and
+// the error-string entry every kernel library exports.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,23 +35,8 @@ __device__ __forceinline__ void load16(const T* src, float* dst) {
   widen16(*reinterpret_cast<const uint4*>(src), dst, T());
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 }  // namespace repro
 

@@ -3,11 +3,17 @@
 Counterpart of ``repro/kernels/paged_attention/ops.py`` (the jit wrapper
 of ``paged_attention_pallas``).  A CUDA tensor launches the hand-written
 kernel or raises; a CPU tensor takes the plain version in ``ref.py``.
-``paged_attention.launches`` counts kernel launches.
+The kernel runs in two passes (flash-decoding): one block per (KV head,
+sequence, split) writes partial softmax results to an fp32 workspace, and
+a second kernel merges the splits.  :func:`partition` picks the splits
+from shapes alone, so a call never reads ``context_lens`` on the host.
+``paged_attention.launches`` counts wrapper calls that launched the
+kernel, one per call whatever the number of passes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -15,7 +21,31 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 7 + [_I] * 9 + [_P]
+
+TILE = 64              # splits are whole tiles: kSplitAlign in the .cu
+MIN_SPLIT_TILES = 4    # a split streams at least 256 tokens
+BLOCKS_PER_SM = 2      # blocks of pass 1 aimed at per SM
+MAX_GROUP = 8          # query heads per KV head that the kernel takes
+
+
+def partition(B: int, KV: int, n_pages: int, page: int, sm_count: int):
+    """``(splits, split_tokens)``: each sequence's ``n_pages * page`` token
+    slots cut into ``splits`` ranges of ``split_tokens`` (a whole number of
+    tiles), enough for about ``BLOCKS_PER_SM`` blocks of (KV head, sequence,
+    split) per SM, none shorter than ``MIN_SPLIT_TILES`` tiles unless the
+    table is, and none wholly past the table."""
+    tiles = -(-n_pages * page // TILE)
+    want = -(-BLOCKS_PER_SM * sm_count // (B * KV))
+    splits = max(1, min(want, tiles // MIN_SPLIT_TILES))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per * TILE
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA device ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q, k_pages, v_pages, block_tables, context_lens):
@@ -29,6 +59,9 @@ def _check(q, k_pages, v_pages, block_tables, context_lens):
         raise ValueError("q and the pages disagree on head dim")
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
+    if H // KV > MAX_GROUP:
+        raise ValueError(f"{H // KV} query heads per KV head; the kernel "
+                         f"takes at most {MAX_GROUP}")
     if hd % 16 or not 16 <= hd <= 128:
         raise ValueError(f"head dim {hd} is not a multiple of 16 in [16, 128]")
     if (block_tables.dim() != 2 or block_tables.shape[0] != B
@@ -59,14 +92,20 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
         raise ValueError(f"unsupported device {q.device}")
     B, H, hd = q.shape
     P, page, KV, _ = k_pages.shape
+    n_pages = block_tables.shape[1]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B == 0:
         return out
-    _build.check_aligned(k_pages, v_pages)
+    _build.check_aligned(q, k_pages, v_pages)
+    splits, split_tokens = partition(B, KV, n_pages, page,
+                                     sm_count(q.device))
+    # acc [B, KV, splits, G, hd], then (m, l) [B, KV, splits, 2, G]
+    ws = torch.empty(B * H * splits * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     fn = _build.entry("paged_attention", "paged_attention_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-             B, H, KV, hd, page, block_tables.shape[1],
+             ws.data_ptr(), B, H, KV, hd, page, n_pages, splits, split_tokens,
              int(q.dtype == torch.bfloat16),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("paged_attention", err)

@@ -9,13 +9,16 @@ of ``--prompt`` tokens one-shot; the admission step is traced as prefill.
 Then ``--steps`` decode steps are traced with ``torch.profiler``.  For each
 phase it prints one JSON line: wall ms per step, device busy ms per step
 (the union of kernel intervals in the trace), kernel launches per step,
-and device ms per step by kernel name, largest first.  The traces go to
-``--out``.
+device ms per step by kernel name, largest first, and, for each of the
+port's own CUDA kernels that ran (``kernels/*/csrc``: names in the
+top-level ``(anonymous namespace)`` of those sources), its device ms and launches per
+step.  The traces go to ``--out``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -35,6 +38,11 @@ def _kernels(trace_path: Path):
             if e.get("cat") == "kernel" and "dur" in e]
 
 
+# the port's kernels are defined in an anonymous namespace at the top level
+# of their .cu (PyTorch's own sit in at::native::(anonymous namespace))
+_PORT_KERNEL = re.compile(r"^void \(anonymous namespace\)::(\w+)")
+
+
 def _summary(phase: str, kernels, wall_s: float, steps: int) -> dict:
     busy, end = 0.0, float("-inf")
     for _, ts, dur in sorted(kernels, key=lambda k: k[1]):
@@ -46,13 +54,22 @@ def _summary(phase: str, kernels, wall_s: float, steps: int) -> dict:
     for name, _, dur in kernels:
         by_name[name[:80]] += dur
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    port = defaultdict(lambda: [0.0, 0])
+    for name, _, dur in kernels:
+        hit = _PORT_KERNEL.search(name)
+        if hit:
+            port[hit.group(1)][0] += dur
+            port[hit.group(1)][1] += 1
     wall_ms = wall_s * 1e3 / steps
     busy_ms = busy / 1e3 / steps
     return {"phase": phase, "steps": steps, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "launches_per_step": len(kernels) / steps,
-            "device_ms_by_kernel": {n: d / 1e3 / steps for n, d in top}}
+            "device_ms_by_kernel": {n: d / 1e3 / steps for n, d in top},
+            "port_kernels": {n: {"ms_per_step": d / 1e3 / steps,
+                                 "launches_per_step": c / steps}
+                             for n, (d, c) in sorted(port.items())}}
 
 
 def _traced(phase: str, fn, steps: int, out: Path) -> dict:

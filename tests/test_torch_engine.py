@@ -184,3 +184,18 @@ def test_profile_summary_merges_overlapping_kernels():
     assert s["device_idle_share"] == pytest.approx(0.6)
     assert s["launches_per_step"] == 3
     assert list(s["device_ms_by_kernel"]) == ["gemm", "attn"]
+
+
+def test_profile_summary_counts_the_port_kernels():
+    from repro_torch.launch.profile_step import _summary
+    split = "void (anonymous namespace)::paged_split_mma_kernel<128>(int)"
+    merge = "void (anonymous namespace)::paged_merge_kernel<float>(int)"
+    torch_own = "void at::native::(anonymous namespace)::silu_kernel(int)"
+    kernels = [(split, 0.0, 8.0), (merge, 9.0, 2.0), ("sm90_gemm", 12.0, 20.0),
+               (torch_own, 33.0, 1.0), (split, 40.0, 8.0), (merge, 49.0, 2.0)]
+    s = _summary("decode", kernels, wall_s=100e-6, steps=2)
+    assert s["port_kernels"] == {
+        "paged_merge_kernel": {"ms_per_step": pytest.approx(0.002),
+                               "launches_per_step": 1.0},
+        "paged_split_mma_kernel": {"ms_per_step": pytest.approx(0.008),
+                                   "launches_per_step": 1.0}}
