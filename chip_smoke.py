@@ -10,8 +10,8 @@ JAX.  Phases, each printing one JSON line:
    build of every kernel from ``src/repro_torch/kernels/*/csrc`` (three:
    paged decode, flash attention, SSD scan), ptxas's registers and spills,
    and the count of tensor-core instructions (``HGMMA``, ``HMMA``) that
-   ``cuobjdump -sass`` finds in the flash library, where the toolkit has
-   ``cuobjdump``;
+   ``cuobjdump -sass`` finds in the flash and SSD libraries, where the
+   toolkit has ``cuobjdump``;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, with its time (device time: the timed calls are
    replayed from a CUDA graph), the plain version's, one PyTorch
@@ -38,9 +38,19 @@ JAX.  Phases, each printing one JSON line:
    groupings, ragged edges, window, softcap, non-causal, a k/v prefix of
    a longer buffer, and one shape each routed to the fp32 FMA kernel).
    SSD: both input types are computed in fp32 by the kernel and the plain
-   version alike, so both are held to 1e-4 of the plain output's largest
-   magnitude, with dt and A drawn as the model draws them so that terms
-   far across tiles and chunks count; its flops count C Bᵀ once per group;
+   version alike (bf16 products on the tensor cores with each fp32
+   operand split into two bf16 parts), so both are held to 1e-4 of the
+   plain output's largest magnitude, y and the final state apart
+   (``rel_err_y``, ``rel_err_state``), with dt and A drawn as the model
+   draws them so that terms far across tiles and chunks count.  Its flops
+   count C Bᵀ once per group; its bound takes the route's rate (989
+   TFLOP/s for bf16 on the tensor cores, 67 for fp32 on FMAs;
+   ``bound_fp32_ms`` is the fp32-rate bound of both).  ``ms_cold`` cycles
+   over input sets larger in all than twice the L2.  Small untimed shapes
+   (``SSD_BRANCHES``, each in fp32 and bf16) reach every pass and branch:
+   groups, head dims, state sizes, chunk lengths, one and many chunks,
+   B=3, and trailing rows with dt = 0 whose state must match the unpadded
+   run's; their outputs and workspaces are NaN until a pass writes them;
 3. reduced: reduced llama3.1-8b and reduced mamba2-1.3b in fp32, each
    served on the kernel path and on the CPU plain path with the same
    weights: greedy tokens must match;
@@ -368,18 +378,14 @@ def flash_branch_case(B, Lq, Lk, H, KV, hd, dtype_name, kw, buf_len, seed):
             "max_abs_err": max_err(out, ref)}
 
 
-def ssd_case(L: int, dtype_name: str, seed: int):
-    """mamba2-1.3b's scan at B=1: H=64 heads of P=64, one group of N=128,
-    chunk 256.  dt and A are drawn as ``init_mamba`` draws them (dt =
-    softplus(noise + dt_bias), dt_bias for dt in [1e-3, 0.1]; A = -1..-H),
-    so the slow heads carry O(1) weight across key tiles and chunks."""
+def _ssd_inputs(B, L, H, P, G, N, dtype_name, g):
+    """x, dt, A, B, C on the card, dt and A drawn as ``init_mamba`` draws
+    them (dt = softplus(noise + dt_bias), dt_bias for dt in [1e-3, 0.1];
+    A = -1..-H), so the slow heads carry O(1) weight across key tiles and
+    chunks."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.ssd.ops import ssd
-    from repro_torch.kernels.ssd.ref import ssd_ref
-    B, H, P, G, N, Q = 1, 64, 64, 1, 128, 256
     dt_ = getattr(torch, dtype_name)
-    g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((B, L, H, P), generator=g, device="cuda").to(dt_)
     dt0 = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(
         (H,), generator=g, device="cuda"))
@@ -389,29 +395,118 @@ def ssd_case(L: int, dtype_name: str, seed: int):
     A = -torch.arange(1, H + 1, dtype=torch.float32, device="cuda")
     Bm = (0.3 * torch.randn((B, L, G, N), generator=g, device="cuda")).to(dt_)
     Cm = (0.3 * torch.randn((B, L, G, N), generator=g, device="cuda")).to(dt_)
-    args = (x, dt, A, Bm, Cm)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_errors(y, st, yr, str_) -> dict:
+    """Max abs error and the errors of y and of the state relative to the
+    plain output's largest magnitude (NaN stays NaN)."""
+    ey, es = max_err(y, yr), max_err(st, str_)
+    ry = ey / yr.abs().max().item()
+    rs = es / str_.abs().max().item()
+    return {"max_abs_err": max(ey, es), "rel_err_y": ry, "rel_err_state": rs,
+            "rel_err": max(ry, rs) if ry == ry and rs == rs else math.nan}
+
+
+def ssd_case(L: int, dtype_name: str, seed: int):
+    """mamba2-1.3b's scan at B=1: H=64 heads of P=64, one group of N=128,
+    chunk 256.  ``ms`` repeats one input set (warm in the 50 MB L2);
+    ``ms_cold`` cycles over enough input sets (at least three) that their
+    bytes exceed twice the L2."""
+    import torch
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    B, H, P, G, N, Q = 1, 64, 64, 1, 128, 256
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    args = _ssd_inputs(B, L, H, P, G, N, dtype_name, g)
     y, st = ssd(*args, chunk=Q)
     yr, str_ = ssd_ref(*args, chunk=Q)
     torch.cuda.synchronize()
-    rel = max(max_err(y, yr) / yr.abs().max().item(),
-              max_err(st, str_) / str_.abs().max().item())
     # C Bᵀ once per (batch, group, chunk): the H/G heads of a group share
     # it.  Per head: att·x over the causal pairs, C·state and the update.
     pairs = Q * (Q + 1) // 2
     flops = (B * G * (L // Q) * 2 * N * pairs
              + B * H * (L // Q) * (2 * P * pairs + 4 * Q * N * P))
-    es = x.element_size()
+    es = args[0].element_size()
     nbytes = (es * (B * L * H * P + 2 * B * L * G * N) + 4 * (B * L * H + H)
               + 4 * (B * L * H * P + B * H * P * N))
-    b_ms, b_by = bound(nbytes, flops, "float32")   # both compute in fp32
+    # the route's rate: bf16 on the tensor cores, fp32 on FMAs
+    b_ms, b_by = bound(nbytes, flops, dtype_name)
+    n_sets = max(3, math.ceil(2 * 50e6 / nbytes))
+    sets = [args] + [_ssd_inputs(B, L, H, P, G, N, dtype_name, g)
+                     for _ in range(n_sets - 1)]
+    turn = itertools.cycle(range(n_sets))
     return {
-        "B": B, "L": L, "dtype": dtype_name,
-        "max_abs_err": max(max_err(y, yr), max_err(st, str_)),
-        "rel_err": rel,
+        "B": B, "L": L, "dtype": dtype_name, **_ssd_errors(y, st, yr, str_),
         "ms": time_ms(lambda: ssd(*args, chunk=Q)),
+        "ms_cold": time_ms(lambda: ssd(*sets[next(turn)], chunk=Q)),
+        "cold_sets": n_sets,
         "plain_ms": time_ms(lambda: ssd_ref(*args, chunk=Q), iters=5),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "bound_fp32_ms": bound(nbytes, flops, "float32")[0],
     }
+
+
+# Small untimed shapes that reach every pass and branch of the SSD kernel,
+# each run in fp32 and in bf16: (B, L, H, P, G, N, chunk, unpadded length).
+# With an unpadded length, the rows past it have dt = 0, as
+# ``models/ssd.py`` pads a prompt to the chunk, and the state must equal
+# that of the unpadded rows run at chunk 16.
+SSD_BRANCHES = [
+    (1, 256, 8, 64, 1, 128, 256, None),     # one chunk, G = 1
+    (1, 16, 8, 16, 4, 16, 16, None),        # one chunk of 16, G = 4
+    (3, 192, 8, 16, 2, 16, 16, None),       # 12 chunks, B = 3, G = 2
+    (2, 768, 8, 24, 4, 40, 64, None),       # 12 chunks, P = 24, N = 40
+    (1, 512, 8, 8, 2, 8, 256, None),        # P = 8, N = 8
+    (1, 3072, 8, 64, 1, 128, 256, None),    # 12 chunks of 256
+    (2, 128, 8, 64, 2, 128, 64, 80),        # trailing dt = 0 rows
+    (1, 512, 8, 16, 1, 16, 256, 496),       # trailing rows in a long chunk
+]
+
+
+def _poison(shapes) -> bool:
+    """Fill fresh blocks of the caching allocator with NaN at ``shapes`` and
+    free them, so that the next ``torch.empty`` calls of those shapes (the
+    SSD wrapper's outputs and workspaces) get NaN memory.  Returns whether
+    an ``empty`` of each shape then reads all NaN."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = [torch.full(s, math.nan, device="cuda") for s in shapes]
+    del held
+    probe = [torch.empty(s, device="cuda") for s in shapes]
+    ok = all(bool(t.isnan().all()) for t in probe)
+    del probe
+    return ok
+
+
+def ssd_branch_case(B, L, H, P, G, N, Q, real, dtype_name, seed):
+    """One ``SSD_BRANCHES`` shape against the plain version, on outputs and
+    workspaces that hold NaN until a pass writes them."""
+    import torch
+    from repro_torch.kernels.ssd.ops import ssd, workspace_shapes
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, dt, A, Bm, Cm = _ssd_inputs(B, L, H, P, G, N, dtype_name, g)
+    if real is not None:
+        dt[:, real:] = 0.0
+    shapes = [(B, L, H, P), (B, H, P, N),
+              *workspace_shapes(B, L, H, G, P, N, Q).values()]
+    poisoned = _poison(shapes)
+    y, st = ssd(x, dt, A, Bm, Cm, chunk=Q)
+    yr, str_ = ssd_ref(x, dt, A, Bm, Cm, chunk=Q)
+    torch.cuda.synchronize()
+    row = {"B": B, "L": L, "H": H, "P": P, "G": G, "N": N, "chunk": Q,
+           "dtype": dtype_name, "poisoned": poisoned,
+           **_ssd_errors(y, st, yr, str_)}
+    if real is not None:
+        cut = [t[:, :real].contiguous() for t in (x, dt, Bm, Cm)]
+        y2, st2 = ssd(cut[0], cut[1], A, cut[2], cut[3], chunk=16)
+        torch.cuda.synchronize()
+        cmp = _ssd_errors(y[:, :real], st, y2, st2)
+        row.update(unpadded=real, rel_err_vs_unpadded=cmp["rel_err"])
+        row["rel_err"] = max(row["rel_err"], cmp["rel_err"])
+    return row
 
 
 def check_kernels():
@@ -427,7 +522,7 @@ def check_kernels():
         for r in rows:
             emit({"phase": "kernel", "name": name, **r})
             ok = (r["rel_err"] <= TOL["float32"] if name == "ssd"
-                  else r["max_abs_err"] <= TOL[r["dtype"]])
+                  else r["max_abs_err"] <= TOL[r["dtype"]])   # NaN fails
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {r}")
@@ -444,6 +539,13 @@ def check_kernels():
         if not r["max_abs_err"] <= TOL[r["dtype"]]:   # NaN fails too
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version: {r}")
+    for i, shape in enumerate(SSD_BRANCHES):
+        for dtype_name in ("float32", "bfloat16"):
+            r = ssd_branch_case(*shape, dtype_name, seed=300 + i)
+            emit({"phase": "kernel_branch", "name": "ssd", **r})
+            if not (r["rel_err"] <= TOL["float32"] and r["poisoned"]):
+                raise AssertionError(f"ssd disagrees with its plain version: "
+                                     f"{r}")
     return cases
 
 
@@ -595,7 +697,8 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln
                         or "Performance Loss" in ln]
                     for n, log in logs.items()},
-          "flash_sass": tensor_core_count("flash_attention")})
+          "flash_sass": tensor_core_count("flash_attention"),
+          "ssd_sass": tensor_core_count("ssd")})
 
     cases = check_kernels()
     for arch in ("llama3.1-8b", "mamba2-1.3b"):

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/kernels/ssd/ops.py`` (the jit wrapper of
 ``ssd_pallas``).  A CUDA tensor launches the hand-written kernel or raises;
-a CPU tensor takes the plain version in ``ref.py``.  ``ssd.launches``
-counts kernel launches.
+a CPU tensor takes the plain version in ``ref.py``.  The kernel runs in
+three passes over fp32 workspaces that the wrapper allocates
+(:func:`workspace_shapes`); ``ssd.launches`` counts calls, one per call.
 """
 from __future__ import annotations
 
@@ -15,9 +16,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd.ref import ssd_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
+_ARGTYPES = [_P] * 11 + [_I] * 8 + [_P]
 
 MAX_HEAD_DIM, MAX_STATE = 64, 128    # the kernel's shared-memory tiles
+TILE = 64                            # rows of a C Bᵀ tile
+
+
+def workspace_shapes(Bsz: int, L: int, H: int, G: int, P: int, N: int,
+                     chunk: int) -> dict:
+    """The fp32 workspaces of one call, in the kernel's argument order:
+    ``seg`` (cumsum of dt·A within each chunk), ``states`` (each chunk's own
+    state contribution), ``start`` (each chunk's starting state; for bf16
+    inputs its bf16 hi and lo parts in the same bytes) and ``cb`` (C Bᵀ of
+    each chunk and group, rows and columns rounded up to whole 64-row
+    tiles)."""
+    nc = L // chunk
+    qp = -(-chunk // TILE) * TILE
+    return {"seg": (Bsz, H, L), "states": (Bsz, nc, H, P, N),
+            "start": (Bsz, nc, H, P, N), "cb": (Bsz, nc, G, qp, qp)}
 
 
 def _check(x, dt, A, B_, C, chunk: int):
@@ -71,9 +87,12 @@ def ssd(x, dt, A, B_, C, *, chunk: int = 256):
     if Bsz == 0:
         return y, state
     _build.check_aligned(x, B_, C)
+    ws = [torch.empty(shape, dtype=torch.float32, device=x.device)
+          for shape in workspace_shapes(Bsz, L, H, G, P, N, chunk).values()]
     fn = _build.entry("ssd", "ssd_launch", _ARGTYPES)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
              C.data_ptr(), y.data_ptr(), state.data_ptr(),
+             *(w.data_ptr() for w in ws),
              Bsz, L, H, G, P, N, chunk, int(x.dtype == torch.bfloat16),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("ssd", err)

@@ -39,8 +39,18 @@ def _kernels(trace_path: Path):
 
 
 # the port's kernels are defined in an anonymous namespace at the top level
-# of their .cu (PyTorch's own sit in at::native::(anonymous namespace))
-_PORT_KERNEL = re.compile(r"^void \(anonymous namespace\)::(\w+)")
+# of their .cu; the trace names a template instance with its return type, a
+# plain kernel without.  PyTorch has kernels in such a namespace too, so a
+# name counts only if a ``__global__`` function of the port's sources has it.
+_ANON_KERNEL = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
+_GLOBAL_FN = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                        r"(\w+)\s*\(")
+
+
+def _port_kernel_names() -> set:
+    from repro_torch.kernels import _build
+    return {name for files in _build.kernel_sources().values() for f in files
+            for name in _GLOBAL_FN.findall(f.read_text())}
 
 
 def _summary(phase: str, kernels, wall_s: float, steps: int) -> dict:
@@ -55,9 +65,10 @@ def _summary(phase: str, kernels, wall_s: float, steps: int) -> dict:
         by_name[name[:80]] += dur
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     port = defaultdict(lambda: [0.0, 0])
+    ours = _port_kernel_names()
     for name, _, dur in kernels:
-        hit = _PORT_KERNEL.search(name)
-        if hit:
+        hit = _ANON_KERNEL.search(name)
+        if hit and hit.group(1) in ours:
             port[hit.group(1)][0] += dur
             port[hit.group(1)][1] += 1
     wall_ms = wall_s * 1e3 / steps

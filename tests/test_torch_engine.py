@@ -199,3 +199,24 @@ def test_profile_summary_counts_the_port_kernels():
                                "launches_per_step": 1.0},
         "paged_split_mma_kernel": {"ms_per_step": pytest.approx(0.008),
                                    "launches_per_step": 1.0}}
+
+
+def test_profile_summary_counts_plain_port_kernels():
+    """A kernel that is no template instance is traced without its return
+    type; it is one of the port's kernels all the same.  A kernel that no
+    source of the port defines is not, whatever its namespace."""
+    from repro_torch.launch.profile_step import _summary
+    chunk = "void (anonymous namespace)::ssd_chunk_kernel<__nv_bfloat16>(int)"
+    state = "(anonymous namespace)::ssd_state_pass_kernel(float*, int)"
+    scan = "(anonymous namespace)::ssd_scan_mma_kernel(float const*, int)"
+    torch_own = "at::native::(anonymous namespace)::silu_kernel(int)"
+    # PyTorch's own kernel in a top-level anonymous namespace
+    torch_anon = ("void (anonymous namespace)::elementwise_kernel_with_index"
+                  "<int>(int)")
+    kernels = [(chunk, 0.0, 3.0), (state, 4.0, 1.0), (scan, 6.0, 12.0),
+               (torch_own, 20.0, 1.0), (torch_anon, 22.0, 1.0)]
+    s = _summary("prefill", kernels, wall_s=40e-6, steps=1)
+    assert sorted(s["port_kernels"]) == ["ssd_chunk_kernel", "ssd_scan_mma_kernel",
+                                         "ssd_state_pass_kernel"]
+    assert s["port_kernels"]["ssd_scan_mma_kernel"]["ms_per_step"] == \
+        pytest.approx(0.012)

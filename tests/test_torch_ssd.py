@@ -303,3 +303,118 @@ def test_serve_launcher_reduced_mamba_on_cpu(capsys):
     assert all(e.prefill_chunk is None for e in engines)   # both one-shot
     assert all(e.cache is None and e.states is not None for e in engines)
     assert "served 4 requests" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's decomposition, emulated in plain torch on the CPU: pass 1
+# (seg, each chunk's own state contribution, C Bᵀ once per group), pass 2
+# (the recurrence over chunk states), pass 3 (the chunk scan).  With
+# ``split``, each fp32 operand that the bf16 route feeds to the tensor cores
+# (the weighted x, the starting state, att) is rounded to hi + lo, hi =
+# bf16(v), lo = bf16(v - hi), as the kernel rounds it; bf16 products
+# accumulate exactly in fp32.
+# ---------------------------------------------------------------------------
+
+def _hi(v):
+    return v.to(torch.bfloat16).float()
+
+
+def _hi_lo(v):
+    return _hi(v) + _hi(v - _hi(v))
+
+
+def _passes(x, dt, A, B_, C, chunk, split, rnd=_hi_lo):
+    Bsz, L, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    nc, rep = L // chunk, H // G
+    rnd = rnd if split else (lambda v: v)
+    xc = x.float().reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.float().reshape(Bsz, nc, chunk, H)
+    Bc = B_.float().reshape(Bsz, nc, chunk, G, N)
+    Cc = C.float().reshape(Bsz, nc, chunk, G, N)
+    # pass 1: every chunk at once
+    seg = torch.cumsum(dtc * A.float(), dim=2)                # [B,nc,Q,H]
+    w = torch.exp(seg[:, :, -1:] - seg) * dtc
+    wx = rnd(xc * w[..., None])                               # [B,nc,Q,H,P]
+    own = torch.einsum("bcjhp,bcjhn->bchpn", wx,
+                       Bc.repeat_interleave(rep, dim=3))
+    cb = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc)           # once per group
+    # pass 2: S_0 = 0, S_c = exp(seg_last) S_{c-1} + s_c
+    start = torch.zeros_like(own)
+    S = torch.zeros_like(own[:, 0])
+    for c in range(nc):
+        start[:, c] = S
+        S = torch.exp(seg[:, c, -1])[..., None, None] * S + own[:, c]
+    # pass 3: the chunk scan
+    sh = seg.transpose(2, 3)                                  # [B,nc,H,Q]
+    diff = sh[..., :, None] - sh[..., None, :]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    att = torch.where(causal, cb.repeat_interleave(rep, dim=2)
+                      * torch.exp(diff.masked_fill(~causal, float("-inf")))
+                      * dtc.transpose(2, 3)[..., None, :], 0.0)
+    y = torch.einsum("bchij,bcjhp->bcihp", rnd(att), xc)
+    y = y + torch.exp(seg)[..., None] * torch.einsum(
+        "bcihn,bchpn->bcihp", Cc.repeat_interleave(rep, dim=3), rnd(start))
+    return y.reshape(Bsz, L, H, P), S
+
+
+def _slow_decay_inputs(B, L, H, P, G, N):
+    """As ``test_plain_ssd_matches_jax_with_slow_decay`` draws them."""
+    x, _, _, B_, C = _ssd_inputs(B, L, H, P, G, N, seed=7)
+    rng = np.random.default_rng(8)
+    dt0 = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), H))
+    dt_bias = dt0 + np.log(-np.expm1(-dt0))
+    dt = np.log1p(np.exp(rng.standard_normal((B, L, H)) + dt_bias)
+                  ).astype(np.float32)
+    A = -np.arange(1, H + 1, dtype=np.float32)
+    return x, dt, A, B_, C
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("oracle", ["ssd_chunked", "ssd_pallas"])
+@pytest.mark.parametrize("B,L,H,P,G,N,Q", SHAPES)
+def test_kernel_passes_match_jax(B, L, H, P, G, N, Q, oracle, split):
+    args = _slow_decay_inputs(B, L, H, P, G, N)
+    y, st = _passes(*map(torch.from_numpy, args), chunk=Q, split=split)
+    jargs = map(jnp.asarray, args)
+    if oracle == "ssd_chunked":
+        yr, str_ = JS.ssd_chunked(*jargs, chunk=Q)
+    else:
+        yr, str_ = ssd_pallas(*jargs, chunk=Q, interpret=True)
+    np.testing.assert_allclose(_np(y), _np(yr), **TOL)
+    np.testing.assert_allclose(_np(st), _np(str_), **TOL)
+
+
+def test_kernel_passes_match_plain_in_bf16_at_mamba_head_shape():
+    """mamba2-1.3b's head shape (P=64, N=128, chunk 256) over two chunks,
+    bf16 x/B/C, every fp32 operand split as the tensor-core route splits
+    it: within 1e-4 of the plain version's largest magnitude."""
+    args = list(map(torch.from_numpy, _slow_decay_inputs(1, 512, 4, 64, 1,
+                                                         128)))
+    for i in (0, 3, 4):
+        args[i] = args[i].bfloat16()
+    y, st = _passes(*args, chunk=256, split=True)
+    yr, str_ = ssd(*args, chunk=256)
+    assert (y - yr).abs().max() <= 1e-4 * yr.abs().max()
+    assert (st - str_).abs().max() <= 1e-4 * str_.abs().max()
+    y32, st32 = _passes(*args, chunk=256, split=False)
+    assert (y32 - yr).abs().max() <= 1e-4 * yr.abs().max()
+    assert (st32 - str_).abs().max() <= 1e-4 * str_.abs().max()
+    # the lo part matters: rounding each operand to bf16 once misses
+    y1, _ = _passes(*args, chunk=256, split=True, rnd=_hi)
+    assert (y1 - yr).abs().max() > 1e-4 * yr.abs().max()
+
+
+def test_workspace_shapes():
+    from repro_torch.kernels.ssd.ops import workspace_shapes
+    ws = workspace_shapes(1, 2048, 64, 1, 64, 128, 256)
+    assert ws == {"seg": (1, 64, 2048), "states": (1, 8, 64, 64, 128),
+                  "start": (1, 8, 64, 64, 128), "cb": (1, 8, 1, 256, 256)}
+    assert 4 * np.prod(ws["states"]) == 16_777_216          # 16.8 MB
+    assert 4 * np.prod(ws["cb"]) == 2_097_152               # 2.1 MB
+    # C Bᵀ rows and columns are whole 64-row tiles
+    assert workspace_shapes(3, 192, 8, 2, 16, 16, 16) == {
+        "seg": (3, 8, 192), "states": (3, 12, 8, 16, 16),
+        "start": (3, 12, 8, 16, 16), "cb": (3, 12, 2, 64, 64)}
+    assert workspace_shapes(2, 768, 8, 4, 24, 40, 96)["cb"] == (
+        2, 8, 4, 128, 128)
