@@ -60,12 +60,38 @@ JAX.  Phases, each printing one JSON line:
    prefills in chunks, mamba's engines both prefill in one shot.  Every
    request must finish, and every prefill and decode layer must have
    launched its kernel: the launch counts are set to 0 just before each
-   model's run and read just after it.
+   model's run and read just after it;
+5. goodput: GoodServe's decision path through ``repro_torch.launch.goodput``.
+   (a) ``measure_engine_profile`` on full-width llama3.1-8b in bf16
+   (random weights from seed 0, one-shot prefill, ``max_len`` 4096, page
+   16) over decode batches 1, 2, 4, 8 by contexts 256, 1024, 2048, 3968 and
+   prefills of 128, 512, 1024 and 2048 tokens (each decode entry the
+   median of 32 steps less the slowest, each prefill entry the median of 5
+   prompts; ``meta`` holds each entry's spread), after one untimed pass
+   over the grid: a ``measured-cuda`` profile of the H100 entry, printed
+   beside the analytic H800 profile at the same points, with the
+   paged-decode and flash-attention launches it made (counts set to 0
+   just before, read just after) and its peak memory.  Every entry must
+   be finite and positive, no entry may be the analytic stand-in that
+   the profile takes where a point had no full-batch decode step
+   (``analytic_points``), and both kernels must have launched.  (b) The
+   paper-scale ``MoEPredictor`` (9 experts, ~44.7M parameters) fitted on
+   the card on ``train_corpus(n=2000, seed=1)`` (40 epochs, lr 1e-3): fit
+   time, held-out MAE on ``train_corpus(n=300, seed=9)`` beside
+   ``HistoryPredictor``'s, the median time of one ``predict`` at batch 1;
+   a copy of the fitted module on the CPU must predict the same 300
+   prompts within 1e-4 of the largest log1p prediction (log scale).
+   (c) fig6's loop: 8 routers, n=400 at 10 requests/s, seed 3, SLO scales
+   1, 2 and 3, over the paper pool (H800, A800, A40, V100, analytic) and
+   the same pool with the H100 on the measured profile in place of the
+   H800; one line per (pool, scale, router) and GoodServe's margin over
+   the best baseline.  Every run must finish all 400 requests.
 
-Then the ``kernels`` line (launch counts from the phase-4 run of the model
-whose path runs each kernel), the card's ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
-without that last line, as does a machine without a CUDA device.
+Then the ``kernels`` line (``launches``: the count from the phase-4 run of
+the model whose path runs each kernel; ``launches_by_path``: each path's
+count, the phase-5 profile's included), the card's ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero without that last line, as does a machine without a CUDA device.
 """
 from __future__ import annotations
 
@@ -674,6 +700,81 @@ def serve_full_width(arch: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: GoodServe's decision path on a profile measured on this card
+# ---------------------------------------------------------------------------
+
+PREDICT_TOL = 1e-4     # card vs CPU predictions, of the largest log1p value
+
+
+def goodput_profile():
+    import torch
+    from repro_torch.launch import goodput
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    prof = goodput.measure_profile("full", "cuda")
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in w.items()}
+    ana = goodput.analytic_beside(prof)
+    res = {"phase": "goodput_profile", "hardware": prof.hardware,
+           "model": prof.model, "provenance": prof.provenance,
+           "decode_batches": prof.decode_batches,
+           "decode_ctxs": prof.decode_ctxs, "decode_s": prof.decode_s,
+           "analytic_h800_decode_s": ana.decode_s,
+           "prefill_tokens": prof.prefill_tokens, "prefill_s": prof.prefill_s,
+           "analytic_h800_prefill_s": ana.prefill_s,
+           "overhead_s": prof.overhead_s, "meta": prof.meta,
+           "launches": launches, "seconds": seconds,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(res)
+    flat = [t for row in prof.decode_s for t in row] + list(prof.prefill_s)
+    if not (prof.provenance == "measured-cuda"
+            and all(math.isfinite(t) and t > 0 for t in flat)
+            and prof.meta["analytic_points"] == []
+            and launches["paged_attention"] > 0
+            and launches["flash_attention"] > 0 and launches["ssd"] == 0):
+        raise AssertionError(f"goodput profile failed: {res}")
+    return prof, launches
+
+
+def goodput_predictor():
+    import numpy as np
+    import torch
+    from repro_torch.cluster.workload import train_corpus
+    from repro_torch.launch import goodput
+    pred, fit = goodput.fit_predictor("full", "cuda")
+    test = train_corpus(n=300, seed=9)
+    cpu = copy.copy(pred)
+    cpu.params = copy.deepcopy(pred.params).to("cpu")
+    cpu.device = torch.device("cpu")
+    on_card = np.log1p(pred.predict_requests(test))
+    on_cpu = np.log1p(cpu.predict_requests(test))
+    err = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    res = {"phase": "goodput_predictor", "scale": "PAPER_SCALE",
+           "num_experts": pred.K, **fit, "cpu_max_rel_log_err": err,
+           "tol": PREDICT_TOL, "device": str(pred.device)}
+    emit(res)
+    if not (err <= PREDICT_TOL and math.isfinite(fit["mae"])
+            and pred.device.type == "cuda"):
+        raise AssertionError(f"goodput predictor failed: {res}")
+    return pred
+
+
+def goodput_runs(pred, prof, n: int = 400):
+    from repro_torch.launch import goodput
+    rows = goodput.run_goodput(pred, prof, n=n, scales=(1.0, 2.0, 3.0))
+    for r in rows:
+        emit({"phase": "goodput", **r})
+    runs = [r for r in rows if "router" in r]
+    if not (len(runs) == 2 * 3 * len(goodput.ROUTERS)
+            and all(r["n_finished"] == n for r in runs)):
+        raise AssertionError("goodput: a run did not finish every request")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -703,14 +804,18 @@ def main() -> int:
     cases = check_kernels()
     for arch in ("llama3.1-8b", "mamba2-1.3b"):
         check_reduced(arch)
-    launches = {}
+    launches, by_path = {}, {}
     for arch in ("llama3.1-8b", "mamba2-1.3b"):
         ran = serve_full_width(arch)
         launches.update({n: ran[n] for n in path_kernels(get_config(arch))})
+        by_path[f"{arch} serve"] = ran
+    prof, by_path["goodput profile (llama3.1-8b)"] = goodput_profile()
+    goodput_runs(goodput_predictor(), prof)
 
     def line(name, route, source, replaces, row):
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[name],
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,10 +1,10 @@
 """Model configs for the PyTorch port.
 
-A copy of ``BlockSpec``, ``Stage``, the sub-configs, ``ModelConfig``,
-``uniform_stage`` and ``reduce_config`` from the JAX package
-(``repro/configs/base.py:25-142, 198-276``).  The port keeps its own copy
-so that it imports nothing of ``repro``; the tests hold the two copies to
-the same fields.  Malformed specs raise ``ValueError`` where the JAX copy
+A copy of ``BlockSpec``, ``Stage``, the sub-configs, ``ModelConfig``
+(with ``param_count``), ``uniform_stage`` and ``reduce_config`` from the
+JAX package (``repro/configs/base.py:25-189, 198-276``).  The port keeps
+its own copy so that it imports nothing of ``repro``; the tests hold the
+two copies to the same fields.  Malformed specs raise ``ValueError`` where the JAX copy
 asserts.
 """
 from __future__ import annotations
@@ -124,6 +124,55 @@ class ModelConfig:
             for _ in range(st.repeat):
                 out.extend(st.pattern)
         return out
+
+    # -- parameter counting (analytic; used for roofline MODEL_FLOPS) ------
+
+    def param_count(self, *, active_only: bool = False) -> int:
+        d = self.d_model
+        n = 0
+        # embeddings (+ untied lm head)
+        n += self.vocab_size * d
+        if not self.tie_embeddings:
+            n += self.vocab_size * d
+        if self.n_prefix_embeds:
+            n += d * d  # frontend projection stub
+        for blk in self.layer_list():
+            n += d  # input norm
+            if blk.mixer in ("full", "window"):
+                n += d * self.attn_q_dim + 2 * d * self.attn_kv_dim
+                n += self.attn_q_dim * d
+                if self.qk_norm:
+                    n += 2 * self.head_dim
+            elif blk.mixer == "mla":
+                m = self.mla
+                n += d * self.num_heads * (m.nope_head_dim + m.rope_head_dim)  # wq
+                n += d * (m.kv_lora_rank + m.rope_head_dim)                    # w_dkv
+                n += m.kv_lora_rank                                            # kv norm
+                n += m.kv_lora_rank * self.num_heads * m.nope_head_dim         # w_uk
+                n += m.kv_lora_rank * self.num_heads * m.v_head_dim            # w_uv
+                n += self.num_heads * m.v_head_dim * d                         # wo
+            elif blk.mixer == "mamba":
+                s = self.ssm
+                di = s.d_inner(d)
+                nh = s.n_heads(d)
+                conv_ch = di + 2 * s.n_groups * s.d_state
+                n += d * (2 * di + 2 * s.n_groups * s.d_state + nh)  # in_proj
+                n += s.d_conv * conv_ch                               # conv
+                n += 3 * nh                                           # A_log, D, dt_bias
+                n += di                                               # gated norm
+                n += di * d                                           # out_proj
+            if blk.ffn == "dense":
+                n += d  # pre-ffn norm
+                n += 3 * d * self.d_ff
+            elif blk.ffn == "moe":
+                mo = self.moe
+                n += d
+                n += d * mo.num_experts  # router
+                e = mo.num_experts if not active_only else mo.top_k
+                n += 3 * d * mo.d_ff_expert * e
+                if mo.num_shared:
+                    n += 3 * d * mo.d_ff_shared
+        return n
 
 
 def uniform_stage(num_layers: int, mixer: str = "full", ffn: str = "dense",

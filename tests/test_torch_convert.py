@@ -59,3 +59,6 @@ def test_config_copies_match_jax(arch, reduced):
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert [dataclasses.astuple(b) for b in tcfg.layer_list()] == \
         [dataclasses.astuple(b) for b in jcfg.layer_list()]
+    for active_only in (False, True):
+        assert tcfg.param_count(active_only=active_only) == \
+            jcfg.param_count(active_only=active_only)

@@ -89,6 +89,35 @@ def test_checkpoint_roundtrip_releases_pages(bridged):
     assert got == want and len(got) == 8
 
 
+def test_chunked_resume_after_checkpoint_matches_jax_one_shot(bridged):
+    """A request checkpointed after three generated tokens resumes on a
+    chunked-prefill port engine with the tokens of the JAX one-shot
+    engine.  The JAX chunked engine is not the oracle here: its chunked
+    path prefills only ``prompt_len`` tokens and splices the cache there
+    (``repro/engine/engine.py:162-174``), so it drops the generated
+    tokens' K/V and generates again from the end of the prompt.  The port
+    prefills every token a request holds, on both paths."""
+    def snapshot(src, req_cls):
+        src.submit(req_cls(rid=99, tokens=list(range(10)), prompt_len=10,
+                           max_new_tokens=8))
+        src.step()
+        src.step()
+        snap = src.checkpoint_request(99)
+        assert len(snap.generated) == 3
+        return snap
+
+    dst = _port(bridged, max_batch=2, max_len=48, prefill_chunk=4)
+    assert dst.prefill_chunk == 4
+    dst.submit(snapshot(_port(bridged, max_batch=2, max_len=48),
+                        EngineRequest))
+    got = dst.run_until_drained()[0].generated
+    one_shot = _jax(bridged, max_batch=2, max_len=48)
+    one_shot.submit(snapshot(_jax(bridged, max_batch=2, max_len=48), JReq))
+    want = one_shot.run_until_drained()[0].generated
+    assert got == want == [88, 119, 245, 245, 245, 30, 244, 132]
+    assert dst.cache.utilization() == 0.0
+
+
 def test_checkpoint_of_staged_and_queued_requests(bridged):
     eng = _port(bridged, max_batch=1, max_len=48, prefill_chunk=4)
     for rid in range(2):

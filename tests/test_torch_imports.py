@@ -41,14 +41,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     from repro_torch.engine.engine import InferenceEngine
     from repro_torch.engine.kv_cache import PagedKVCache
     from repro_torch.engine.state_cache import SSMStateCache
+    from repro_torch.bench.profile import measure_engine_profile
+    from repro_torch.cluster.hardware import GPUS
+    from repro_torch.cluster.workload import train_corpus
+    from repro_torch.core.predictor import (MoEPredictor, SingleMLPPredictor,
+                                            TransformerProxyPredictor)
+    from repro_torch.launch import goodput
     from repro_torch.launch.serve import main
     from repro_torch.models.model import init_params
     cfg = reduce_config(get_config("llama3.1-8b"))
     mamba = reduce_config(get_config("mamba2-1.3b"))
+    corpus = train_corpus(n=20, seed=1)
     for make in (lambda: InferenceEngine(cfg), lambda: init_params(cfg),
                  lambda: PagedKVCache(cfg, 4), lambda: SSMStateCache(mamba, 2),
                  lambda: InferenceEngine(mamba),
-                 lambda: main(["--size", "reduced", "--n-requests", "1"])):
+                 lambda: main(["--size", "reduced", "--n-requests", "1"]),
+                 lambda: MoEPredictor().fit(corpus, epochs=1),
+                 lambda: SingleMLPPredictor().fit(corpus, epochs=1),
+                 lambda: TransformerProxyPredictor().fit(corpus, epochs=1),
+                 lambda: measure_engine_profile(cfg, GPUS["H100"]),
+                 lambda: goodput.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
@@ -85,7 +97,7 @@ def test_wrappers_on_cpu_run_plain_versions_and_launch_nothing():
 def test_kernel_modules_import_without_nvcc():
     code = (
         "import repro_torch.models.model, repro_torch.engine.engine\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.goodput\n"
         "from repro_torch.kernels import _build\n"
         "assert not _build._libs\n")
     env = {k: v for k, v in os.environ.items()
