@@ -50,17 +50,28 @@ JAX.  Phases, each printing one JSON line:
    (``SSD_BRANCHES``, each in fp32 and bf16) reach every pass and branch:
    groups, head dims, state sizes, chunk lengths, one and many chunks,
    B=3, and trailing rows with dt = 0 whose state must match the unpadded
-   run's; their outputs and workspaces are NaN until a pass writes them;
-3. reduced: reduced llama3.1-8b and reduced mamba2-1.3b in fp32, each
-   served on the kernel path and on the CPU plain path with the same
-   weights: greedy tokens must match;
+   run's; their outputs and workspaces are NaN until a pass writes them.
+   Last, bf16 paged decode at B=1 and B=8 with every row at context 256,
+   over the engine's fixed-width tables of 4096 token slots and over the
+   tables cut to the context (``kernel_width`` lines: the splits past the
+   context cost what ``ms`` less ``ms_cut`` shows);
+3. reduced: reduced llama3.1-8b, reduced mamba2-1.3b and a reduced hybrid
+   (a mamba layer, then full attention) in fp32, each served on the kernel
+   path and on the CPU plain path with the same weights, in three cases:
+   batched, chunked, and staggered (rows finishing at different steps,
+   pages handed out again): greedy tokens must match, and every decode
+   step of every card engine must be a replay of its CUDA graph;
 4. serve: full-width llama3.1-8b, then full-width mamba2-1.3b, in bf16
    (random weights from a seed), each on two engines sharing one weight
    set, 12 requests through the EMA-routed launcher; llama's odd engine
    prefills in chunks, mamba's engines both prefill in one shot.  Every
    request must finish, and every prefill and decode layer must have
    launched its kernel: the launch counts are set to 0 just before each
-   model's run and read just after it;
+   model's run and read just after it (the engines, built before, capture
+   their decode graphs without counting; each replay counts the launches
+   its capture recorded).  Each engine's decode steps must all be graph
+   replays; the ``decode_graph`` line gives each engine's capture seconds
+   beside TPOT, decode tokens/s and peak memory;
 5. goodput: GoodServe's decision path through ``repro_torch.launch.goodput``.
    (a) ``measure_engine_profile`` on full-width llama3.1-8b in bf16
    (random weights from seed 0, one-shot prefill, ``max_len`` 4096, page
@@ -238,6 +249,58 @@ def paged_case(B: int, dtype_name: str, seed: int):
         row["library_warm_l2_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(*dense[0], attn_mask=mask))
     return row
+
+
+def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096):
+    """bf16 paged decode at llama3.1-8b's attention shape with every row at
+    context ``ctx``, over block tables of ``width`` token slots (the
+    engine's fixed width at ``max_len`` 4096: entries past a row's pages
+    name one scratch page) and over the same tables cut to the context.
+    The kernel picks its splits from the table width, so the full-width
+    call runs splits that lie wholly past ctx; both are timed from a graph,
+    with the same bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                         partition, sm_count)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    H, KV, hd, page = 32, 8, 128, 16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    used, n_pages = ctx // page, width // page
+    P = B * used + 1                                  # the last is scratch
+    dt = torch.bfloat16
+    q = torch.randn((B, H, hd), generator=g, device="cuda").to(dt)
+    kp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
+    vp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
+    full = torch.full((B, n_pages), P - 1, dtype=torch.int32, device="cuda")
+    full[:, :used] = torch.randperm(P - 1, generator=g, device="cuda").view(
+        B, used).to(torch.int32)
+    cut = full[:, :used].contiguous()
+    lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+    out_full = paged_attention(q, kp, vp, full, lens)
+    out_cut = paged_attention(q, kp, vp, cut, lens)
+    ref = paged_attention_ref(q, kp, vp, cut, lens)
+    torch.cuda.synchronize()
+    nbytes = 2 * (2 * B * ctx * KV * hd + 2 * B * H * hd) + 4 * (B * used + B)
+    b_ms, b_by = bound(nbytes, 4.0 * H * hd * B * ctx, "bfloat16")
+    kd = kp[cut.long()].reshape(B, ctx, KV, hd).transpose(1, 2)
+    vd = vp[cut.long()].reshape(B, ctx, KV, hd).transpose(1, 2)
+    dense = (q[:, :, None], kd.repeat_interleave(H // KV, dim=1),
+             vd.repeat_interleave(H // KV, dim=1))
+    sm = sm_count(q.device)
+    return {
+        "B": B, "dtype": "bfloat16", "ctx": ctx,
+        "table_tokens": {"full": width, "cut": ctx},
+        "splits": {"full": partition(B, KV, n_pages, page, sm),
+                   "cut": partition(B, KV, used, page, sm)},
+        "max_abs_err": max(max_err(out_full, ref), max_err(out_cut, ref)),
+        "ms": time_ms(lambda: paged_attention(q, kp, vp, full, lens)),
+        "ms_cut": time_ms(lambda: paged_attention(q, kp, vp, cut, lens)),
+        "plain_ms": time_ms(lambda: paged_attention_ref(q, kp, vp, full,
+                                                        lens), iters=5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(*dense)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
 
 
 # Small untimed shapes that reach every branch of the paged kernel:
@@ -544,6 +607,12 @@ def check_kernels():
             cases["flash_attention"].append(flash_case(Lq, Lk, dtype_name, Lq))
         for L in (2048, 512):
             cases["ssd"].append(ssd_case(L, dtype_name, L))
+    for B in (1, 8):
+        r = paged_width_case(B, 400 + B)
+        emit({"phase": "kernel_width", "name": "paged_attention", **r})
+        if not r["max_abs_err"] <= TOL["bfloat16"]:       # NaN fails too
+            raise AssertionError(f"paged_attention at a fixed-width table "
+                                 f"disagrees with its plain version: {r}")
     for name, rows in cases.items():
         for r in rows:
             emit({"phase": "kernel", "name": name, **r})
@@ -581,11 +650,8 @@ def check_kernels():
 
 def wrappers():
     """{kernel name: its wrapper, which carries the ``launches`` count}."""
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.paged_attention.ops import paged_attention
-    from repro_torch.kernels.ssd.ops import ssd
-    return {"paged_attention": paged_attention,
-            "flash_attention": flash_attention, "ssd": ssd}
+    from repro_torch.engine.engine import KERNELS
+    return {k.__name__: k for k in KERNELS}
 
 
 def path_kernels(cfg):
@@ -595,42 +661,85 @@ def path_kernels(cfg):
     return set().union(*(by_cache[kind] for kind, _ in layer_caches(cfg)))
 
 
+def reduced_config(arch: str):
+    """Reduced ``arch`` at two layers per stage; ``hybrid`` is reduced
+    mamba2-1.3b cut to a mamba layer and a full-attention layer with a dense
+    FFN, so one decode graph holds both caches."""
+    import dataclasses
+    from repro_torch.configs import base, get_config, reduce_config
+    if arch != "hybrid":
+        return reduce_config(get_config(arch), layers_per_stage=2)
+    cfg = reduce_config(get_config("mamba2-1.3b"))
+    stage = base.Stage(pattern=(base.BlockSpec("mamba", "none"),
+                                base.BlockSpec("full", "dense")), repeat=1)
+    return dataclasses.replace(cfg, name="hybrid-reduced", family="hybrid",
+                               num_layers=2, stages=(stage,))
+
+
+def staggered(vocab: int, seed: int = 11):
+    """(engine step at which it arrives, prompt, max_new_tokens): six
+    requests in four waves with staggered lengths, so that rows finish at
+    different steps, never more than three of four slots run at once, and
+    released pages are handed out again."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [(w, [int(t) for t in rng.integers(1, vocab, n)], m)
+            for w, n, m in zip((0, 0, 2, 5, 5, 9), (13, 6, 17, 9, 21, 11),
+                               (3, 7, 2, 6, 4, 5))]
+
+
 def check_reduced(arch: str):
+    """Reduced ``arch`` in fp32 on the card and on the CPU, same weights:
+    ``batched`` (5 requests over 3 slots), ``chunked`` (prefill in chunks of
+    8 where the config allows it) and ``staggered`` (rows finishing at
+    different steps, free rows in every step, 18 pages of 4 tokens for
+    requests that need 27 in all).  Greedy tokens must match, and every
+    decode step of every card engine must be a replay of its graph."""
     import torch
-    from repro_torch.configs import get_config, reduce_config
     from repro_torch.engine.engine import EngineRequest, InferenceEngine
     from repro_torch.models.model import init_params
-    cfg = reduce_config(get_config(arch), layers_per_stage=2)
+    cfg = reduced_config(arch)
     cpu = init_params(cfg, torch.Generator().manual_seed(7),
                       dtype=torch.float32, device="cpu")
     gpu = copy.deepcopy(cpu).to("cuda")
     rng = torch.Generator().manual_seed(1)
-    batched = [list(range(5 + i, 13 + i)) for i in range(5)]
+    batched = [(0, list(range(5 + i, 13 + i)), 6) for i in range(5)]
     # mamba (16-row chunks): its engines gate chunked prefill off, so
     # "chunked" runs one-shot too, over one and two chunks
-    chunked = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
-               for n in (17, 9)]
+    chunked = [(0, torch.randint(0, cfg.vocab_size, (n,),
+                                 generator=rng).tolist(), 6) for n in (17, 9)]
+    cases = (("batched", batched, dict(max_batch=3)),
+             ("chunked", chunked, dict(max_batch=2, prefill_chunk=8)),
+             ("staggered", staggered(cfg.vocab_size),
+              dict(max_batch=4, page_size=4, num_pages=18)))
     w = wrappers()
     before = {n: f.launches for n, f in w.items()}
-    out = {}
+    out, replays = {}, {}
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
-        for name, prompts, kw in (("batched", batched, dict(max_batch=3)),
-                                  ("chunked", chunked,
-                                   dict(max_batch=2, prefill_chunk=8))):
+        for name, schedule, kw in cases:
             eng = InferenceEngine(cfg, model, max_len=64, device=dev, **kw)
-            for rid, p in enumerate(prompts):
-                eng.submit(EngineRequest(rid=rid, tokens=list(p),
-                                         prompt_len=len(p), max_new_tokens=6))
+            for t in range(max(wave for wave, _, _ in schedule) + 1):
+                for rid, (wave, p, m) in enumerate(schedule):
+                    if wave == t:
+                        eng.submit(EngineRequest(rid=rid, tokens=list(p),
+                                                 prompt_len=len(p),
+                                                 max_new_tokens=m))
+                eng.step()
             out[dev, name] = {r.rid: r.generated
                               for r in eng.run_until_drained()}
+            if dev == "cuda":
+                steps = sum(kind == "decode" for kind, _, _ in eng.events)
+                replays[name] = [eng.graph_replays, steps]
     launches = {n: f.launches - before[n] for n, f in w.items()}
     res = {"phase": "reduced", "config": cfg.name, "launches": launches,
-           "tokens_equal": all(out["cpu", n] == out["cuda", n]
-                               for n in ("batched", "chunked")),
+           "tokens_equal": {n: out["cpu", n] == out["cuda", n]
+                            for n, _, _ in cases},
+           "graph_replays_and_decode_steps": replays,
            "n_requests": sum(len(v) for (d, _), v in out.items()
                              if d == "cuda")}
     emit(res)
-    if not (res["tokens_equal"] and res["n_requests"] == 7
+    if not (all(res["tokens_equal"].values()) and res["n_requests"] == 13
+            and all(r == n > 0 for r, n in replays.values())
             and all(launches[n] > 0 for n in path_kernels(cfg))):
         raise AssertionError(f"reduced kernel path disagrees: {res} {out}")
 
@@ -686,6 +795,16 @@ def serve_full_width(arch: str):
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     emit(res)
+    # every decode step of every engine replayed the engine's graph
+    steps = [sum(kind == "decode" for kind, _, _ in evs)
+             for evs in report["events"]]
+    graph = {"phase": "decode_graph", "config": cfg.name,
+             "capture_s": [e.capture_s for e in engines],
+             "graph_replays": [e.graph_replays for e in engines],
+             "decode_steps": steps, "median_tpot_s": res["median_tpot_s"],
+             "decode_tokens_per_s": res["decode_tokens_per_s"],
+             "peak_memory_gb": res["peak_memory_gb"]}
+    emit(graph)
     L = cfg.num_layers
     kernels = path_kernels(cfg)
     want = {"flash_attention": L * prefill_calls, "ssd": L * prefill_calls,
@@ -694,6 +813,7 @@ def serve_full_width(arch: str):
     if not (len(done) == n_req
             and all(len(r.generated) == max_new for r in done)
             and launches == want and all(want[n] > 0 for n in kernels)
+            and graph["graph_replays"] == steps
             and {0, 1} <= set(report["routed"])):
         raise AssertionError(f"full-width serve incomplete: {res}, "
                              f"launches wanted {want}")
@@ -802,7 +922,7 @@ def main() -> int:
           "ssd_sass": tensor_core_count("ssd")})
 
     cases = check_kernels()
-    for arch in ("llama3.1-8b", "mamba2-1.3b"):
+    for arch in ("llama3.1-8b", "mamba2-1.3b", "hybrid"):
         check_reduced(arch)
     launches, by_path = {}, {}
     for arch in ("llama3.1-8b", "mamba2-1.3b"):

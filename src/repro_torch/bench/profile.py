@@ -284,6 +284,9 @@ def measure_engine_profile(cfg, hw: hwlib.HardwareSpec,
     iteration would not cover; ``meta["warmup"]`` records it.  Each engine
     is dropped, and with it its KV pages, before the next is built.
 
+    On the card every engine replays its decode step from a CUDA graph
+    captured when it is built; ``meta["decode_graph"]`` says so and holds
+    the spread of the capture seconds over the timed pass's engines.
     ``meta`` also records what each entry rests on:
     ``decode_spread_s[i][j]`` and ``prefill_spread_s[j]`` hold the count,
     minimum, quartiles and maximum of the timed samples; and
@@ -312,12 +315,17 @@ def measure_engine_profile(cfg, hw: hwlib.HardwareSpec,
     def prompt(n):
         return [int(x) for x in rng.integers(1, cfg.vocab_size, size=n)]
 
+    captures = []       # capture seconds of each engine of the pass
+
     def engine(b):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        return InferenceEngine(cfg, params, max_batch=b, max_len=max_len,
-                               seed=seed, prefill_chunk=prefill_chunk,
-                               device=dev)
+        eng = InferenceEngine(cfg, params, max_batch=b, max_len=max_len,
+                              seed=seed, prefill_chunk=prefill_chunk,
+                              device=dev)
+        if eng.capture_s is not None:
+            captures.append(eng.capture_s)
+        return eng
 
     def spread(xs):
         if not xs:
@@ -327,6 +335,7 @@ def measure_engine_profile(cfg, hw: hwlib.HardwareSpec,
                 "p75": float(q3), "max": max(xs)}
 
     def grid():
+        captures.clear()
         # -- prefill grid: one request per chunk size, timed by the engine;
         # the median of PREFILL_REPEATS such requests
         pre_s, pre_spread = [], []
@@ -366,9 +375,11 @@ def measure_engine_profile(cfg, hw: hwlib.HardwareSpec,
                            hwlib.decode_iteration_time(hw, fp, b, c))
             decode_s.append(tuple(row))
             dec_spread.append(row_spread)
-        return pre_s, decode_s, {"decode_spread_s": dec_spread,
-                                 "prefill_spread_s": pre_spread,
-                                 "analytic_points": analytic_points}
+        return pre_s, decode_s, {
+            "decode_spread_s": dec_spread, "prefill_spread_s": pre_spread,
+            "analytic_points": analytic_points,
+            "decode_graph": {"replayed": dev.type == "cuda",
+                             "capture_s": spread(captures)}}
 
     m = {"backend": dev.type, "decode_iters": decode_iters,
          "prefill_repeats": PREFILL_REPEATS, "seed": seed,

@@ -7,10 +7,19 @@ Counterpart of ``repro/engine/engine.py:37-216`` with the same surface:
 events deque.  Deliberate differences:
 
 * decode attends over a paged KV cache (``PagedKVCache``) through the paged
-  kernel and runs only the active rows; the JAX engine decodes every slot
-  of a dense per-slot ring cache.  The engine holds pages only for
-  attention layers and per-slot states (``SSMStateCache``) only for mamba
-  layers; decode updates the active slots' states in place;
+  kernel; the JAX engine attends over a dense per-slot ring cache.  Like
+  the JAX engine's jitted decode, the step runs at one fixed shape over
+  every slot: tokens [max_batch], block tables [max_batch, ceil(max_len /
+  page)] and context lengths [max_batch], in device buffers that each step
+  rewrites in place (one packed host-to-device copy).  A free slot decodes
+  token 0 against the cache's scratch page and its result is dropped.  On
+  the card the step is captured once, at construction while every slot is
+  free, into a CUDA graph (the counterpart of ``jax.jit``) and replayed on
+  every step (``graph_replays`` counts them); a capture or replay that
+  fails raises.  On the CPU the same padded step runs eagerly.  The engine
+  holds pages only for attention layers and per-slot states
+  (``SSMStateCache``) only for mamba layers; decode updates every slot's
+  state in place;
 * chunked prefill stages into a linear K/V buffer, as the JAX engine does,
   and flash attention sees it cut to ``pos0 + C`` rows.  When the prompt is
   complete its rows are copied into freshly allocated pages: for full
@@ -26,7 +35,12 @@ events deque.  Deliberate differences:
 * prefill covers every token a request holds, so a request resubmitted
   after ``checkpoint_request`` resumes with its generated tokens in the
   cache;
-* non-finite logits raise ``FloatingPointError`` instead of being served.
+* non-finite logits of a request raise ``FloatingPointError`` instead of
+  being served.
+
+The kernel wrappers count launches in Python, which a graph replay does
+not run: the counts made while warming up and capturing are taken back, and
+each replay adds the launches that the capture recorded.
 """
 from __future__ import annotations
 
@@ -41,9 +55,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine.kv_cache import PagedKVCache
 from repro_torch.engine.state_cache import SSMStateCache
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.model import (Model, decode_step, init_cache,
                                       init_params, layer_caches, prefill,
                                       prefill_chunk)
+
+KERNELS = (paged_attention, flash_attention, ssd)   # their ``launches``
+WARMUP_STEPS = 2        # eager decode steps on a side stream before capture
 
 
 @dataclasses.dataclass
@@ -85,6 +105,7 @@ class InferenceEngine:
         if num_pages is None:
             num_pages = max_batch * -(-max_len // page_size)
         self.cache = (PagedKVCache(cfg, num_pages, page_size,
+                                   slots=max_batch, max_len=max_len,
                                    dtype=params.dtype, device=self.device)
                       if "kv" in kinds else None)
         self.states = (SSMStateCache(cfg, max_batch, dtype=params.dtype,
@@ -103,6 +124,98 @@ class InferenceEngine:
         self._staging: Optional[dict] = None
         self.events: Deque[tuple] = deque(maxlen=max_events)
         self.completed: List[EngineRequest] = []
+        self.graph_replays = 0
+        self.capture_s: Optional[float] = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._init_decode_inputs()
+        if self.device.type == "cuda":
+            self._capture()
+
+    # -- the fixed-shape decode step ------------------------------------------
+
+    def _init_decode_inputs(self):
+        """One packed int32 buffer on the host (pinned on the card) and its
+        device copy: tokens [B], then with attention layers context lengths
+        [B] and block tables [B, W]; the step's cache view reads the
+        device copy."""
+        B = self.max_batch
+        n = B
+        if self.cache is not None:
+            table, _ = self.cache.table_view()
+            n += B + table.size
+        self._host = torch.zeros(n, dtype=torch.int32,
+                                 pin_memory=self.device.type == "cuda")
+        self._dev = torch.zeros(n, dtype=torch.int32, device=self.device)
+        self._view = {}
+        if self.cache is not None:
+            self._view = {"k_pages": self.cache.k_pages,
+                          "v_pages": self.cache.v_pages,
+                          "context_lens": self._dev[B:2 * B],
+                          "block_tables": self._dev[2 * B:].view(B, -1)}
+        if self.states is not None:
+            self._view.update(self.states.decode_view())
+        self._fill_inputs([])
+
+    def _fill_inputs(self, active: List[int]):
+        """Write the step's tokens (0 in free rows), context lengths and the
+        table rows that changed into the host buffer, then copy the parts
+        that changed to the device in one copy."""
+        B = self.max_batch
+        h = self._host.numpy()
+        h[:B] = 0
+        for i in active:
+            h[i] = self.slots[i].tokens[-1]
+        n = B
+        if self.cache is not None:
+            table, lens = self.cache.table_view()
+            h[B:2 * B] = lens
+            n = 2 * B
+            rows = self.cache.take_changed_rows()
+            if rows:
+                h[2 * B:].reshape(B, -1)[rows] = table[rows]
+                n = h.size
+        self._dev[:n].copy_(self._host[:n], non_blocking=True)
+
+    def _decode_body(self) -> torch.Tensor:
+        """The step over every slot: [2, B] int32, each row's greedy token
+        and whether its logits are all finite."""
+        logits = decode_step(self.params, self._dev[:self.max_batch],
+                             self._view)
+        return torch.stack([logits.argmax(dim=-1).int(),
+                            torch.isfinite(logits).all(dim=-1).int()])
+
+    def _capture(self):
+        """Warm the step up on a side stream, then capture it into a CUDA
+        graph.  Every slot is free here, so these steps write only the
+        scratch page and free mamba slots.  The kernel launch counts are
+        left as they were; ``_graph_launches`` keeps what one replay
+        launches."""
+        t0 = time.perf_counter()
+        before = [k.launches for k in KERNELS]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._decode_body()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        mark = [k.launches for k in KERNELS]
+        self._graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._graph):
+            self._graph_out = self._decode_body()
+        self._graph_launches = [k.launches - m for k, m in zip(KERNELS, mark)]
+        for k, b in zip(KERNELS, before):
+            k.launches = b
+        synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+
+    def _run_decode(self) -> torch.Tensor:
+        if self._graph is None:
+            return self._decode_body()
+        self._graph.replay()
+        self.graph_replays += 1
+        for k, n in zip(KERNELS, self._graph_launches):
+            k.launches += n
+        return self._graph_out
 
     # -- request lifecycle -----------------------------------------------------
 
@@ -234,19 +347,18 @@ class InferenceEngine:
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return 0
-        toks = self._tokens([self.slots[i].tokens[-1] for i in active])
         t0 = self._clock()
-        cache = {}
         if self.cache is not None:
             for i in active:
                 self.cache.extend(i, 1)
-            cache.update(self.cache.decode_view(active))
-        if self.states is not None:
-            cache.update(self.states.decode_view(active))
-        logits = decode_step(self.params, toks, cache)
+        self._fill_inputs(active)
+        out = self._run_decode()
         self.events.append(("decode", len(active), self._clock() - t0))
-        for i, nxt in zip(active, self._greedy(logits)):
-            req = self.slots[i]
+        tokens, finite = out.tolist()
+        if not all(finite[i] for i in active):
+            raise FloatingPointError("non-finite logits")
+        for i in active:
+            req, nxt = self.slots[i], tokens[i]
             req.tokens.append(nxt)
             full = len(req.tokens) >= min(
                 req.prompt_len + req.max_new_tokens, self.max_len - 1)

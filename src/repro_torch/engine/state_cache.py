@@ -5,10 +5,11 @@ Counterpart of the mamba branch of ``repro/models/model.py:init_cache``
 raw projections (``conv``: ``x`` [slots, K-1, d_inner], ``B``/``C``
 [slots, K-1, G·N], in the weights' dtype) and the SSM state (``ssm``
 [slots, H, P, N], float32), stacked over the mamba layers.  A prefill
-writes a slot and ``models.decode_step`` reads and updates the active
-slots in place.  The engine's ``slots`` list says which slots are in use:
-a freed slot is simply overwritten by the next prefill.  At the published
-width of mamba2-1.3b the SSM state is 2 MB per layer and slot.
+writes a slot and ``models.decode_step`` updates every slot in place: row b
+of the engine's fixed-shape decode batch is slot b.  The engine's ``slots``
+list says which slots are in use: a free slot's state evolves on token 0
+and is simply overwritten by the next prefill.  At the published width of
+mamba2-1.3b the SSM state is 2 MB per layer and slot.
 """
 from __future__ import annotations
 
@@ -40,12 +41,10 @@ class SSMStateCache:
         self.ssm = zeros(n, slots, s.n_heads(cfg.d_model), s.head_dim,
                          s.d_state, dt=torch.float32)
 
-    def decode_view(self, slots: List[int]) -> dict:
-        """The mamba layers' part of ``models.decode_step``'s cache for the
-        batch held in ``slots``."""
-        return {"conv": self.conv, "ssm": self.ssm,
-                "slots": torch.tensor(slots, dtype=torch.long,
-                                      device=self.device)}
+    def decode_view(self) -> dict:
+        """The mamba layers' part of ``models.decode_step``'s cache: every
+        slot, row b of the decode batch being slot b."""
+        return {"conv": self.conv, "ssm": self.ssm}
 
     def write(self, slot: int, states: List[tuple]):
         """Store one request's per-mamba-layer (conv tail {"x", "B", "C"}

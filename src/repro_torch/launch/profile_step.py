@@ -6,7 +6,10 @@
 
 One engine (bf16, random weights from a seed) admits ``--batch`` requests
 of ``--prompt`` tokens one-shot; the admission step is traced as prefill.
-Then ``--steps`` decode steps are traced with ``torch.profiler``.  For each
+Then ``--steps`` decode steps are traced with ``torch.profiler``: on the
+card each is one replay of the engine's CUDA graph, whose kernel nodes the
+trace reports like any kernel (the decode line adds ``graph_replays`` and
+``capture_s``).  For each
 phase it prints one JSON line: wall ms per step, device busy ms per step
 (the union of kernel intervals in the trace), kernel launches per step,
 device ms per step by kernel name, largest first, and, for each of the
@@ -126,7 +129,10 @@ def main(argv=None):
     lines = [_traced("prefill_and_decode", eng.step, 1, out)]
     lines[0]["prefills"] = args.batch
     eng.step()                           # warm the full-batch decode
+    replays = eng.graph_replays
     lines.append(_traced("decode", eng.step, args.steps, out))
+    lines[1].update(graph_replays=eng.graph_replays - replays,
+                    capture_s=eng.capture_s)
     for ln in lines:
         ln.update(batch=args.batch, prompt=args.prompt, arch=args.arch)
         print(json.dumps(ln), flush=True)

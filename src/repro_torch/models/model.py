@@ -13,8 +13,9 @@ Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
   which the engine writes into pages; conv tail and SSM state of a mamba
   layer, which it writes into a state slot) in place of a ring cache;
 * ``decode_step`` attends over the paged cache through the paged kernel,
-  writes the new token's K/V into it in place, and updates the active
-  slots' mamba states in place;
+  writes the new token's K/V into it in place, and updates the mamba
+  states in place, every slot at once (the engine runs it at one fixed
+  shape and, on the card, replays it from a CUDA graph);
 * ``prefill_chunk`` takes only real tokens (no padding to a fixed shape)
   and one ``pos`` for the batch.
 
@@ -233,17 +234,19 @@ def prefill_chunk(model: Model, cache: dict, tokens):
 
 
 def decode_step(model: Model, tokens, cache: dict):
-    """One decode iteration.  tokens: [B] (the last token of each sequence).
+    """One decode iteration.  tokens: [B] int (the last token of each
+    sequence).
 
-    ``cache`` holds the batch's view of each cache the model's layers use
-    (``layer_caches``), as ``PagedKVCache.decode_view`` and
-    ``SSMStateCache.decode_view`` give it.  Attention layers attend over
-    ``k_pages``/``v_pages`` [n kv layers, P, page, KV, hd] through
-    ``block_tables`` int32 [B, n_pages] and ``context_lens`` int32 [B]
-    (counting the new token), and write the new K/V into the pages.  Mamba
-    layers read and update rows ``slots`` int64 [B] of ``conv`` {"x", "B",
-    "C": [n ssm layers, slots, K-1, ·]} and ``ssm`` [n ssm layers, slots,
-    H, P, N] f32 in place.  Returns logits [B, V]."""
+    ``cache`` holds each cache the model's layers use (``layer_caches``),
+    as ``PagedKVCache.decode_view`` and ``SSMStateCache.decode_view`` give
+    it; the engine passes every slot at a fixed shape, row b being slot b.
+    Attention layers attend over ``k_pages``/``v_pages`` [n kv layers, P,
+    page, KV, hd] through ``block_tables`` int32 [B, n_pages] and
+    ``context_lens`` int32 [B] (counting the new token), and write the new
+    K/V into the pages.  Mamba layers update ``conv`` {"x", "B", "C":
+    [n ssm layers, B, K-1, ·]} and ``ssm`` [n ssm layers, B, H, P, N] f32
+    in place.  No host read and no host-built tensor: the step can be
+    captured in a CUDA graph.  Returns logits [B, V]."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)[:, None]
     for blk, (kind, i) in zip(model.layers, layer_caches(cfg)):
@@ -252,15 +255,9 @@ def decode_step(model: Model, tokens, cache: dict):
                                   cache["v_pages"][i], cache["block_tables"],
                                   cache["context_lens"])
         else:
-            slots = cache["slots"]
-            conv = {k: v[i] for k, v in cache["conv"].items()}
-            ssm = cache["ssm"][i]
-            y, (new_conv, new_ssm) = ssd.mamba_decode(
-                blk.mixer, cfg, x, {k: v[slots] for k, v in conv.items()},
-                ssm[slots])
-            for k, v in new_conv.items():
-                conv[k][slots] = v
-            ssm[slots] = new_ssm
+            y, _ = ssd.mamba_decode(
+                blk.mixer, cfg, x, {k: v[i] for k, v in cache["conv"].items()},
+                cache["ssm"][i])
             x = x + y
         if blk.ffn is not None:
             x = x + L.ffn_forward(blk.ffn, cfg, x)

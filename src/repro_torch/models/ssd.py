@@ -8,9 +8,9 @@ runs the CUDA kernel on the card and its plain version on the CPU; the
 JAX layer calls the kernel only with ``use_kernel=True``.  The scan is
 float32 throughout, as the Pallas kernel computes it.  The one-token
 decode update runs outside any kernel in JAX too, so here it is plain
-torch ops on the device.  Parameters are ``nn.ParameterDict``s keyed like
-the JAX pytree; ``A_log``, ``D`` and ``dt_bias`` are float32 in any
-weight dtype, as JAX keeps them.
+torch ops on the device, updating the states in place.  Parameters are
+``nn.ParameterDict``s keyed like the JAX pytree; ``A_log``, ``D`` and
+``dt_bias`` are float32 in any weight dtype, as JAX keeps them.
 """
 from __future__ import annotations
 
@@ -120,10 +120,12 @@ def mamba_forward(p, cfg: ModelConfig, x, return_state: bool = False):
 
 
 def mamba_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
-    """Single-token recurrent update.  x: [B, 1, d]; conv_state: {"x":
-    [B, K-1, di], "B"/"C": [B, K-1, G·N]} (pre-conv history); ssm_state:
-    [B, H, P, N] f32.  Returns (out [B, 1, d], (new conv_state, new
-    ssm_state))."""
+    """Single-token recurrent update, in place.  x: [B, 1, d]; conv_state:
+    {"x": [B, K-1, di], "B"/"C": [B, K-1, G·N]} (pre-conv history);
+    ssm_state: [B, H, P, N] f32.  Both states are updated in place (the
+    engine passes its per-slot tensors whole, row b being slot b).  Returns
+    (out [B, 1, d], (conv_state, ssm_state)), the states being the updated
+    arguments."""
     s = cfg.ssm
     d = cfg.d_model
     di, nh = s.d_inner(d), s.n_heads(d)
@@ -133,25 +135,27 @@ def mamba_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     def conv_step(hist, new, w, b):
         cat = torch.cat([hist, new[:, None, :]], dim=1)
         out = torch.einsum("bkc,kc->bc", cat[:, -w.shape[0]:], w) + b
-        return F.silu(out), cat[:, 1:]
+        hist.copy_(cat[:, 1:])
+        return F.silu(out)
 
-    xs, nhx = conv_step(conv_state["x"], x_new, p["conv_x"], p["conv_bx"])
-    Bv, nhB = conv_step(conv_state["B"], B_new, p["conv_B"], p["conv_bB"])
-    Cv, nhC = conv_step(conv_state["C"], C_new, p["conv_C"], p["conv_bC"])
-    new_conv = {"x": nhx, "B": nhB, "C": nhC}
+    xs = conv_step(conv_state["x"], x_new, p["conv_x"], p["conv_bx"])
+    Bv = conv_step(conv_state["B"], B_new, p["conv_B"], p["conv_bB"])
+    Cv = conv_step(conv_state["C"], C_new, p["conv_C"], p["conv_bC"])
 
     xs = xs.reshape(-1, nh, s.head_dim).float()
     rep = nh // s.n_groups
-    Bv = Bv.reshape(-1, s.n_groups, s.d_state).repeat_interleave(
-        rep, dim=1).float()
-    Cv = Cv.reshape(-1, s.n_groups, s.d_state).repeat_interleave(
-        rep, dim=1).float()
+
+    def per_head(u):       # [B, G·N] -> [B, H, N]: a group's N to its heads
+        u = u.reshape(-1, s.n_groups, 1, s.d_state).float()
+        return u.expand(-1, -1, rep, -1).reshape(-1, nh, s.d_state)
+
+    Bv, Cv = per_head(Bv), per_head(Cv)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])                # [B, H]
     dA = torch.exp(dt * -torch.exp(p["A_log"]))
-    new_state = (dA[:, :, None, None] * ssm_state
-                 + (dt[:, :, None] * xs)[..., None] * Bv[:, :, None, :])
-    y = torch.einsum("bhpn,bhn->bhp", new_state, Cv)
+    ssm_state.mul_(dA[:, :, None, None]).add_(
+        (dt[:, :, None] * xs)[..., None] * Bv[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", ssm_state, Cv)
     y = y + xs * p["D"][None, :, None]
     y = y.reshape(-1, di)
     y = rms_norm(y.to(x.dtype) * F.silu(z), p["gn"], cfg.norm_eps)
-    return (y @ p["out_proj"])[:, None, :], (new_conv, new_state)
+    return (y @ p["out_proj"])[:, None, :], (conv_state, ssm_state)

@@ -142,6 +142,8 @@ def test_measured_profile_records_each_entrys_spread(cpu_profile):
     its samples' range, and no point fell back to the roofline."""
     m = cpu_profile.meta
     assert m["analytic_points"] == []
+    # the CPU runs the padded decode step eagerly: no graph was captured
+    assert m["decode_graph"] == {"replayed": False, "capture_s": {"n": 0}}
     for row, spreads in zip(cpu_profile.decode_s, m["decode_spread_s"]):
         for t, sp in zip(row, spreads):
             assert sp["n"] == m["decode_iters"]

@@ -115,7 +115,7 @@ def test_decode_steps_over_paged_cache(bridged):
     jl, jcache = JM.prefill(params, jcfg, jnp.asarray(toks, jnp.int32),
                             max_len=32)
     tl, kv = TM.prefill(model, torch.from_numpy(toks))
-    cache = PagedKVCache(tcfg, num_pages=12, page_size=4,
+    cache = PagedKVCache(tcfg, num_pages=12, page_size=4, slots=2, max_len=32,
                          dtype=torch.float32, device="cpu")
     for b in range(2):
         cache.allocate(b, 13)
@@ -128,11 +128,12 @@ def test_decode_steps_over_paged_cache(bridged):
                                     jnp.asarray(nxt[:, None], jnp.int32))
         for b in range(2):
             cache.extend(b, 1)
-        view = cache.decode_view([0, 1])
+        view = cache.decode_view()          # every slot, 8 pages wide
         tl = TM.decode_step(model, torch.tensor(nxt, dtype=torch.long), view)
         np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
         nxt = np.asarray(jnp.argmax(jl, axis=-1))
     assert list(_np(view["context_lens"])) == [16, 16]
+    assert tuple(view["block_tables"].shape) == (2, 8)
 
 
 def test_unported_mixers_raise():
