@@ -51,27 +51,41 @@ JAX.  Phases, each printing one JSON line:
    groups, head dims, state sizes, chunk lengths, one and many chunks,
    B=3, and trailing rows with dt = 0 whose state must match the unpadded
    run's; their outputs and workspaces are NaN until a pass writes them.
-   Last, bf16 paged decode at B=1 and B=8 with every row at context 256,
+   Then bf16 paged decode at B=1 and B=8 with every row at context 256,
    over the engine's fixed-width tables of 4096 token slots and over the
    tables cut to the context (``kernel_width`` lines: the splits past the
-   context cost what ``ms`` less ``ms_cut`` shows);
-3. reduced: reduced llama3.1-8b, reduced mamba2-1.3b and a reduced hybrid
-   (a mamba layer, then full attention) in fp32, each served on the kernel
-   path and on the CPU plain path with the same weights, in three cases:
-   batched, chunked, and staggered (rows finishing at different steps,
-   pages handed out again): greedy tokens must match, and every decode
-   step of every card engine must be a replay of its CUDA graph;
-4. serve: full-width llama3.1-8b, then full-width mamba2-1.3b, in bf16
-   (random weights from a seed), each on two engines sharing one weight
-   set, 12 requests through the EMA-routed launcher; llama's odd engine
-   prefills in chunks, mamba's engines both prefill in one shot.  Every
-   request must finish, and every prefill and decode layer must have
-   launched its kernel: the launch counts are set to 0 just before each
+   context cost what ``ms`` less ``ms_cut`` shows).  Last, timed bf16 rows
+   at the other served models' shapes (``MODEL_ROWS``, ``kernel_model``
+   lines): paged decode at qwen3-32b's (B=4, H=64 over KV=8, hd 128),
+   minicpm-2b's (B=8, H=36 over KV=36, hd 64: one query row per KV head)
+   and internvl2-1b's (B=8, H=14 over KV=2, hd 64: seven) with every row
+   at ctx 1025 over the engine's 4096-slot table, and flash attention at
+   minicpm-2b's prefill (Lq=Lk=2000, H=36 over KV=36, hd 64);
+3. reduced: reduced llama3.1-8b, mamba2-1.3b, a hybrid (a mamba layer,
+   then full attention), minicpm-2b, qwen3-32b (qk_norm), internvl2-1b
+   and musicgen-medium in fp32, each served on the kernel path and on the
+   CPU plain path with the same weights, in three cases: batched,
+   chunked, and staggered (rows finishing at different steps, pages
+   handed out again): greedy tokens must match, and every decode step of
+   every card engine must be a replay of its CUDA graph.  For the two
+   configs with prefix embeddings, ``prefill`` logits and the forward
+   pass's hidden states with random prefix embeddings must agree within
+   1e-4 (the engine serves them text-only);
+4. serve: full-width llama3.1-8b, mamba2-1.3b, qwen3-32b and minicpm-2b,
+   in bf16 (random weights from a seed), each on two engines sharing one
+   weight set, 12 requests through the EMA-routed launcher; each model's
+   memory is freed before the next is built.  qwen3-32b's engines hold 4
+   slots each, not 8: its 65.5 GB of weights leave no room for 8 slots of
+   4096 tokens twice (the line's ``cut``).  The attention models' odd
+   engine prefills in chunks, mamba's engines both prefill in one shot.
+   Every request must finish, and every prefill and decode layer must
+   have launched its kernel: the launch counts are set to 0 just before each
    model's run and read just after it (the engines, built before, capture
    their decode graphs without counting; each replay counts the launches
    its capture recorded).  Each engine's decode steps must all be graph
    replays; the ``decode_graph`` line gives each engine's capture seconds
-   beside TPOT, decode tokens/s and peak memory;
+   beside TPOT, decode tokens/s and peak memory (the ``serve`` line puts
+   the card's ``nvidia-smi`` line beside it);
 5. goodput: GoodServe's decision path through ``repro_torch.launch.goodput``.
    (a) ``measure_engine_profile`` on full-width llama3.1-8b in bf16
    (random weights from seed 0, one-shot prefill, ``max_len`` 4096, page
@@ -96,11 +110,19 @@ JAX.  Phases, each printing one JSON line:
    1, 2 and 3, over the paper pool (H800, A800, A40, V100, analytic) and
    the same pool with the H100 on the measured profile in place of the
    H800; one line per (pool, scale, router) and GoodServe's margin over
-   the best baseline.  Every run must finish all 400 requests.
+   the best baseline.  Every run must finish all 400 requests.  (d) The
+   rest of the control plane on the same trace at SLO scale 2 over the
+   pool with the measured H100 (``goodput.policy_runs``): GoodServe with
+   admission control, with the reactive pool controller, with the
+   fairness policy over a trace with an abusive tenant, four sharded
+   gateway replicas over views synced every second, and the bandit router
+   warm-started from a recorded trace, its doubly-robust estimate beside
+   its what-if replay.  Every request of each run must be finished, shed,
+   throttled, cascaded or lost.
 
 Then the ``kernels`` line (``launches``: the count from the phase-4 run of
-the model whose path runs each kernel; ``launches_by_path``: each path's
-count, the phase-5 profile's included), the card's ``nvidia-smi`` line, and
+llama3.1-8b or mamba2-1.3b, whichever runs each kernel; ``launches_by_path``:
+each path's count, every phase-4 model's and the phase-5 profile's), the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero without that last line, as does a machine without a CUDA device.
 """
@@ -251,22 +273,24 @@ def paged_case(B: int, dtype_name: str, seed: int):
     return row
 
 
-def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096):
-    """bf16 paged decode at llama3.1-8b's attention shape with every row at
-    context ``ctx``, over block tables of ``width`` token slots (the
-    engine's fixed width at ``max_len`` 4096: entries past a row's pages
-    name one scratch page) and over the same tables cut to the context.
-    The kernel picks its splits from the table width, so the full-width
-    call runs splits that lie wholly past ctx; both are timed from a graph,
-    with the same bound."""
+def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
+                     H: int = 32, KV: int = 8, hd: int = 128):
+    """bf16 paged decode with every row at context ``ctx`` (llama3.1-8b's
+    attention shape unless H, KV, hd say another model's), over block
+    tables of ``width`` token slots (the engine's fixed width at
+    ``max_len`` 4096: entries past a row's pages name one scratch page)
+    and over the same tables cut to the context's pages.  The kernel picks
+    its splits from the table width, so the full-width call runs splits
+    that lie wholly past ctx; both are timed from a graph, with the same
+    bound.  A last page holds ctx % page live slots; the rest are NaN."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                          partition, sm_count)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    H, KV, hd, page = 32, 8, 128, 16
+    page = 16
     g = torch.Generator(device="cuda").manual_seed(seed)
-    used, n_pages = ctx // page, width // page
+    used, n_pages = -(-ctx // page), width // page
     P = B * used + 1                                  # the last is scratch
     dt = torch.bfloat16
     q = torch.randn((B, H, hd), generator=g, device="cuda").to(dt)
@@ -277,20 +301,28 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096):
         B, used).to(torch.int32)
     cut = full[:, :used].contiguous()
     lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
-    out_full = paged_attention(q, kp, vp, full, lens)
-    out_cut = paged_attention(q, kp, vp, cut, lens)
     ref = paged_attention_ref(q, kp, vp, cut, lens)
+    if ctx % page:                 # slots past ctx on each row's last page
+        k_nan, v_nan = kp.clone(), vp.clone()
+        k_nan[cut[:, -1].long(), ctx % page:] = float("nan")
+        v_nan[cut[:, -1].long(), ctx % page:] = float("nan")
+    else:
+        k_nan, v_nan = kp, vp
+    out_full = paged_attention(q, k_nan, v_nan, full, lens)
+    out_cut = paged_attention(q, k_nan, v_nan, cut, lens)
     torch.cuda.synchronize()
     nbytes = 2 * (2 * B * ctx * KV * hd + 2 * B * H * hd) + 4 * (B * used + B)
     b_ms, b_by = bound(nbytes, 4.0 * H * hd * B * ctx, "bfloat16")
-    kd = kp[cut.long()].reshape(B, ctx, KV, hd).transpose(1, 2)
-    vd = vp[cut.long()].reshape(B, ctx, KV, hd).transpose(1, 2)
+    S = used * page
+    kd = kp[cut.long()].reshape(B, S, KV, hd).transpose(1, 2)
+    vd = vp[cut.long()].reshape(B, S, KV, hd).transpose(1, 2)
     dense = (q[:, :, None], kd.repeat_interleave(H // KV, dim=1),
              vd.repeat_interleave(H // KV, dim=1))
+    mask = None if S == ctx else (torch.arange(S, device="cuda") < ctx)[None]
     sm = sm_count(q.device)
     return {
-        "B": B, "dtype": "bfloat16", "ctx": ctx,
-        "table_tokens": {"full": width, "cut": ctx},
+        "B": B, "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16", "ctx": ctx,
+        "ctx_sum": B * ctx, "table_tokens": {"full": width, "cut": S},
         "splits": {"full": partition(B, KV, n_pages, page, sm),
                    "cut": partition(B, KV, used, page, sm)},
         "max_abs_err": max(max_err(out_full, ref), max_err(out_cut, ref)),
@@ -298,7 +330,8 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096):
         "ms_cut": time_ms(lambda: paged_attention(q, kp, vp, cut, lens)),
         "plain_ms": time_ms(lambda: paged_attention_ref(q, kp, vp, full,
                                                         lens), iters=5),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(*dense)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            *dense, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
 
@@ -318,6 +351,18 @@ PAGED_BRANCHES = [
     (2, 16, 2, 64, 16, 20, "bfloat16", [0, 320]),          # G = 8, 1 split
     (1, 10, 2, 64, 8, 64, "float32", ["split-1"]),
     (2, 56, 8, 128, 16, 40, "float32", ["split+1", 16]),
+    (3, 36, 36, 64, 16, 80, "bfloat16", [0, "split+1", 1025]),  # G = 1, hd 64
+]
+
+# bf16 rows at the decode and prefill shapes of the other served models,
+# timed as the llama rows are: (kernel, model, keyword arguments).  Decode
+# rows hold every sequence at ctx 1025 over the engine's 4096-slot table.
+MODEL_ROWS = [
+    ("paged_attention", "qwen3-32b", dict(B=4, H=64, KV=8, hd=128, ctx=1025)),
+    ("paged_attention", "minicpm-2b", dict(B=8, H=36, KV=36, hd=64, ctx=1025)),
+    ("paged_attention", "internvl2-1b", dict(B=8, H=14, KV=2, hd=64, ctx=1025)),
+    ("flash_attention", "minicpm-2b", dict(Lq=2000, Lk=2000, H=36, KV=36,
+                                           hd=64)),
 ]
 
 
@@ -390,8 +435,10 @@ def _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len=None):
     return q, kv[0][:, :Lk], kv[1][:, :Lk]
 
 
-def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int):
-    """llama3.1-8b's prefill attention (H=32 over KV=8, hd=128), timed.
+def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
+               KV: int = 8, hd: int = 128):
+    """llama3.1-8b's prefill attention (H=32 over KV=8, hd=128, unless H,
+    KV, hd say another model's), timed.
     ``library_ms`` is SDPA with ``is_causal=True`` and no mask where Lq = Lk,
     so that PyTorch may take its flash backend; ``is_causal`` aligns
     top-left, so the chunk shape (Lq < Lk) keeps the explicit bottom-right
@@ -401,7 +448,7 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int):
     from repro_torch.kernels.flash_attention.ops import (cuda_kernel,
                                                          flash_attention)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    B, H, KV, hd = 1, 32, 8, 128
+    B = 1
     q, k, v = _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed)
     out = flash_attention(q, k, v, causal=True)
     ref = attention_ref(q, k, v, causal=True)
@@ -422,7 +469,7 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int):
     library_ms = masked_ms if Lq != Lk else time_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
     return {
-        "Lq": Lq, "Lk": Lk, "dtype": dtype_name,
+        "Lq": Lq, "Lk": Lk, "H": H, "KV": KV, "hd": hd, "dtype": dtype_name,
         "route": cuda_kernel(q.dtype, hd), "max_abs_err": err,
         "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
         "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True),
@@ -613,6 +660,16 @@ def check_kernels():
         if not r["max_abs_err"] <= TOL["bfloat16"]:       # NaN fails too
             raise AssertionError(f"paged_attention at a fixed-width table "
                                  f"disagrees with its plain version: {r}")
+    for i, (name, model, kw) in enumerate(MODEL_ROWS):
+        if name == "paged_attention":
+            kw = dict(kw)
+            r = paged_width_case(kw.pop("B"), 500 + i, **kw)
+        else:
+            r = flash_case(dtype_name="bfloat16", seed=500 + i, **kw)
+        emit({"phase": "kernel_model", "name": name, "model": model, **r})
+        if not r["max_abs_err"] <= TOL["bfloat16"]:       # NaN fails too
+            raise AssertionError(f"{name} at {model}'s shape disagrees with "
+                                 f"its plain version: {r}")
     for name, rows in cases.items():
         for r in rows:
             emit({"phase": "kernel", "name": name, **r})
@@ -647,6 +704,10 @@ def check_kernels():
 # ---------------------------------------------------------------------------
 # phase 3: reduced model, kernel path against the CPU plain path
 # ---------------------------------------------------------------------------
+
+REDUCED_ARCHS = ("llama3.1-8b", "mamba2-1.3b", "hybrid", "minicpm-2b",
+                 "qwen3-32b", "internvl2-1b", "musicgen-medium")
+
 
 def wrappers():
     """{kernel name: its wrapper, which carries the ``launches`` count}."""
@@ -737,10 +798,24 @@ def check_reduced(arch: str):
            "graph_replays_and_decode_steps": replays,
            "n_requests": sum(len(v) for (d, _), v in out.items()
                              if d == "cuda")}
+    prefix_ok = True
+    if cfg.n_prefix_embeds:
+        # the engine serves text only; the model's prefix path runs here
+        from repro_torch.models.model import model_forward, prefill
+        pre = torch.randn((2, cfg.n_prefix_embeds, cfg.d_model), generator=rng)
+        toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=rng)
+        got = [(prefill(m, toks.to(m.device), pre.to(m.device))[0],
+                model_forward(m, toks.to(m.device), pre.to(m.device))[0])
+               for m in (cpu, gpu)]
+        res["prefix_max_abs_err"] = {
+            "prefill_logits": max_err(got[1][0].cpu(), got[0][0]),
+            "forward_hidden": max_err(got[1][1].cpu(), got[0][1])}
+        prefix_ok = max(res["prefix_max_abs_err"].values()) <= TOL["float32"]
     emit(res)
     if not (all(res["tokens_equal"].values()) and res["n_requests"] == 13
             and all(r == n > 0 for r, n in replays.values())
-            and all(launches[n] > 0 for n in path_kernels(cfg))):
+            and all(launches[n] > 0 for n in path_kernels(cfg))
+            and prefix_ok):
         raise AssertionError(f"reduced kernel path disagrees: {res} {out}")
 
 
@@ -748,16 +823,27 @@ def check_reduced(arch: str):
 # phase 4: full-width models through the EMA-routed launcher
 # ---------------------------------------------------------------------------
 
-def serve_full_width(arch: str):
+# (arch, slots per engine or None for the size's 8): qwen3-32b's 65.5 GB
+# of bf16 weights leave room for 2 x 4 slots of 4096 tokens (8.6 GB of KV)
+SERVED = (("llama3.1-8b", None), ("mamba2-1.3b", None),
+          ("qwen3-32b", 4), ("minicpm-2b", None))
+
+
+def serve_full_width(arch: str, card: str, max_batch=None):
+    """``arch`` at full width on two engines of ``max_batch`` slots (the
+    size's 8 unless given), after the previous model's memory is freed."""
+    import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     cfg = get_config(arch)
     max_new, n_req = 32, 12
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engines = serve.build_engines(cfg, 2, "full", "cuda", seed=0)
+    engines = serve.build_engines(cfg, 2, "full", "cuda", seed=0,
+                                  max_batch=max_batch)
     requests = serve.make_requests(cfg, n_req, max_new, "full", seed=0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -778,6 +864,9 @@ def serve_full_width(arch: str):
         for e in engines for r in e.completed)
     res = {
         "phase": "serve", "config": cfg.name, "dtype": "bfloat16",
+        "n_params": cfg.param_count(),
+        "max_batch": [e.max_batch for e in engines],
+        "max_len": [e.max_len for e in engines],
         "prefill_chunk": [e.prefill_chunk for e in engines],
         "engines": len(engines), "requests": n_req, "finished": len(done),
         "routed": report["routed"],
@@ -793,7 +882,12 @@ def serve_full_width(arch: str):
         "decode_tokens_per_s": (sum(n for n, _ in decodes)
                                 / sum(dt for _, dt in decodes)),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "nvidia_smi": card,
     }
+    if max_batch is not None:
+        res["cut"] = (f"max_batch {max_batch} per engine (size default "
+                      f"{serve.SIZES['full']['max_batch']}): weights and KV "
+                      f"must fit the card")
     emit(res)
     # every decode step of every engine replayed the engine's graph
     steps = [sum(kind == "decode" for kind, _, _ in evs)
@@ -895,6 +989,27 @@ def goodput_runs(pred, prof, n: int = 400):
         raise AssertionError("goodput: a run did not finish every request")
 
 
+def goodput_policies(pred, prof, n: int = 400):
+    """Phase 5 (d): the rest of the control plane on fig6's trace over the
+    pool with the measured H100 (``goodput.policy_runs``).  Every request
+    of each run must be accounted for: finished, shed, throttled,
+    cascaded or lost, none left open."""
+    from repro_torch.launch import goodput
+    rows = goodput.policy_runs(pred, prof, n=n)
+    for r in rows:
+        emit({"phase": "goodput_policy", **r})
+    bad = [r["policy"] for r in rows
+           if not (r["n"] == n == sum(r["accounting"].values())
+                   and r["accounting"]["open"] == 0
+                   and math.isfinite(r["goodput_rps"]))]
+    bandit = next(r for r in rows if r["policy"] == "bandit")
+    if (bad or [r["policy"] for r in rows] != goodput.POLICIES
+            or not all(0.0 <= bandit[k] <= 1.0
+                       for k in ("dr_value", "whatif_value"))):
+        raise AssertionError(f"goodput policies: unaccounted requests or "
+                             f"a failed run in {bad}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -922,15 +1037,19 @@ def main() -> int:
           "ssd_sass": tensor_core_count("ssd")})
 
     cases = check_kernels()
-    for arch in ("llama3.1-8b", "mamba2-1.3b", "hybrid"):
+    for arch in REDUCED_ARCHS:
         check_reduced(arch)
     launches, by_path = {}, {}
-    for arch in ("llama3.1-8b", "mamba2-1.3b"):
-        ran = serve_full_width(arch)
-        launches.update({n: ran[n] for n in path_kernels(get_config(arch))})
+    for arch, max_batch in SERVED:
+        ran = serve_full_width(arch, card, max_batch)
+        if arch in ("llama3.1-8b", "mamba2-1.3b"):
+            launches.update({n: ran[n]
+                             for n in path_kernels(get_config(arch))})
         by_path[f"{arch} serve"] = ran
     prof, by_path["goodput profile (llama3.1-8b)"] = goodput_profile()
-    goodput_runs(goodput_predictor(), prof)
+    pred = goodput_predictor()
+    goodput_runs(pred, prof)
+    goodput_policies(pred, prof)
 
     def line(name, route, source, replaces, row):
         return {"name": name, "route": route, "source": source,

@@ -1,18 +1,25 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` for the
-dense full-attention testbed backends and the attention-free Mamba-2
-model (counterpart of ``repro/configs/__init__.py:41-45``).  Other
-architectures wait for the slices that port their mixers."""
+dense full-attention configs (the testbed backends, minicpm-2b,
+qwen3-32b, and the stub-frontend internvl2-1b and musicgen-medium) and the
+attention-free Mamba-2 model (counterpart of
+``repro/configs/__init__.py:41-45``).  Other architectures wait for the
+slices that port their mixers."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (BlockSpec, ModelConfig, Stage,
-                                      reduce_config, uniform_stage)
+from repro_torch.configs.base import (SHAPES, BlockSpec, ModelConfig,
+                                      ShapeSpec, Stage, reduce_config,
+                                      uniform_stage)
 
 _REGISTRY = {
+    "minicpm-2b": "minicpm_2b",
+    "qwen3-32b": "qwen3_32b",
+    "mamba2-1.3b": "mamba2_1p3b",
+    "internvl2-1b": "internvl2_1b",
+    "musicgen-medium": "musicgen_medium",
     "llama3.1-8b": "llama31_8b",
     "qwen2.5-14b": "qwen25_14b",
-    "mamba2-1.3b": "mamba2_1p3b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)
@@ -26,5 +33,5 @@ def get_config(name: str) -> ModelConfig:
         f"repro_torch.configs.{_REGISTRY[name]}").CONFIG
 
 
-__all__ = ["ALL_ARCHS", "BlockSpec", "ModelConfig", "Stage", "get_config",
-           "reduce_config", "uniform_stage"]
+__all__ = ["ALL_ARCHS", "SHAPES", "BlockSpec", "ModelConfig", "ShapeSpec",
+           "Stage", "get_config", "reduce_config", "uniform_stage"]

@@ -1,8 +1,9 @@
 """Model configs for the PyTorch port.
 
 A copy of ``BlockSpec``, ``Stage``, the sub-configs, ``ModelConfig``
-(with ``param_count``), ``uniform_stage`` and ``reduce_config`` from the
-JAX package (``repro/configs/base.py:25-189, 198-276``).  The port keeps
+(with ``block_kinds`` and ``param_count``), ``uniform_stage``,
+``local_global_stages``, ``ShapeSpec``, ``SHAPES`` and ``reduce_config``
+from the JAX package (``repro/configs/base.py:25-276``).  The port keeps
 its own copy so that it imports nothing of ``repro``; the tests hold the
 two copies to the same fields.  Malformed specs raise ``ValueError`` where the JAX copy
 asserts.
@@ -117,6 +118,12 @@ class ModelConfig:
     def attn_kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    def block_kinds(self):
+        """Iterate (stage_idx, pattern_idx, BlockSpec) over unique block slots."""
+        for si, st in enumerate(self.stages):
+            for pi, blk in enumerate(st.pattern):
+                yield si, pi, blk
+
     def layer_list(self):
         """Flat list of BlockSpec, one per actual layer."""
         out = []
@@ -178,6 +185,37 @@ class ModelConfig:
 def uniform_stage(num_layers: int, mixer: str = "full", ffn: str = "dense",
                   window: Optional[int] = None) -> Tuple[Stage, ...]:
     return (Stage(pattern=(BlockSpec(mixer, ffn, window),), repeat=num_layers),)
+
+
+def local_global_stages(num_layers: int, local_per_global: int,
+                        window: int, ffn: str = "dense") -> Tuple[Stage, ...]:
+    """Gemma-3 style N:1 local:global interleave; trailing locals get their
+    own stage when num_layers isn't a multiple of the pattern length."""
+    plen = local_per_global + 1
+    pat = tuple(BlockSpec("window", ffn, window) for _ in range(local_per_global)) \
+        + (BlockSpec("full", ffn),)
+    reps, rem = divmod(num_layers, plen)
+    stages = [Stage(pattern=pat, repeat=reps)]
+    if rem:
+        tail = tuple(BlockSpec("window", ffn, window) for _ in range(rem))
+        stages.append(Stage(pattern=tail, repeat=1))
+    return tuple(stages)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str           # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
 
 
 def reduce_config(cfg: ModelConfig, *, layers_per_stage: int = 1,

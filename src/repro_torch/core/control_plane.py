@@ -423,10 +423,8 @@ class ControlPlane:
         # unrecorded one (tests/test_replay.py)
         self.recorder = None
         if record:
-            # differs: core/replay.py is not ported yet (ROADMAP A11)
-            raise NotImplementedError(
-                "ControlPlane(record=True) needs core/replay.py, which the "
-                "port does not have yet (ROADMAP A11, second half)")
+            from repro_torch.core.replay import TraceRecorder
+            self.recorder = TraceRecorder()
 
     # -- wiring --------------------------------------------------------------
 

@@ -710,8 +710,8 @@ def make_router(name: str, predictor=None, **kw) -> Router:
     if name == "oracle":
         return OracleRouter(**kw)
     if name == "bandit":
-        # differs: core/learned_router.py is not ported yet (ROADMAP A11)
-        raise NotImplementedError(
-            "make_router('bandit') needs core/learned_router.py, which the "
-            "port does not have yet (ROADMAP A11, second half)")
+        # lazy: learned_router imports Router from this module
+        # (predictor-less planes fall back to replay.DEFAULT_PRED)
+        from repro_torch.core.learned_router import BanditRouter
+        return BanditRouter(predictor, **kw)
     raise KeyError(name)

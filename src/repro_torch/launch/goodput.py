@@ -16,7 +16,13 @@ Counterpart of ``examples/quickstart.py`` and the loop of
    (H800, A800, A40, V100 on the analytic roofline) and the same with an
    H100 in place of the H800, whose iteration times come from the profile;
 4. print one row per (pool, SLO scale, router), and GoodServe's margin
-   over the best baseline per (pool, scale).
+   over the best baseline per (pool, scale);
+5. run the rest of the control plane on the same trace over the pool
+   with the profiled H100 (``policy_runs``): admission control, the
+   reactive pool controller, the fairness policy with an abusive tenant,
+   four sharded gateway replicas over stale views, and the bandit router
+   warm-started from a recorded decision trace, with its doubly-robust
+   off-policy estimate beside its live what-if replay.
 
   PYTHONPATH=src python -m repro_torch.launch.goodput           # full, CUDA
   PYTHONPATH=src python -m repro_torch.launch.goodput --device cpu \\
@@ -43,9 +49,18 @@ from repro_torch.bench.profile import (LatencyProfile, analytic_profile,
                                        measure_engine_profile)
 from repro_torch.cluster import hardware as hwlib
 from repro_torch.cluster.simulator import Cluster, Instance, Simulator
-from repro_torch.cluster.workload import make_workload, train_corpus
+from repro_torch.cluster.workload import (TenantSpec, assign_tenants,
+                                         make_workload, train_corpus)
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.core.metrics import summarize
+from repro_torch.core.control_plane import Beliefs, ControlPlane
+from repro_torch.core.controller import (AdmissionController,
+                                         ReactivePoolController)
+from repro_torch.core.fairness import FairnessPolicy
+from repro_torch.core.learned_router import BanditRouter
+from repro_torch.core.metrics import summarize, summarize_elastic
+from repro_torch.core.replay import (dr_estimate, realized_value,
+                                     replay_whatif)
+from repro_torch.core.sharded_plane import make_sharded_plane
 from repro_torch.core.predictor import (FAST_SCALE, PAPER_SCALE,
                                         HistoryPredictor, MoEPredictor,
                                         evaluate_mae)
@@ -196,6 +211,147 @@ def run_goodput(predictor, prof: Optional[LatencyProfile], *, n: int = 400,
     return rows
 
 
+# fig18's tenant mix: 12 Zipf-skewed tenants, tenant 0 an abuser that
+# sends half the traffic as best effort
+TENANTS = TenantSpec(n_tenants=12, zipf_a=1.1, abuser=0, abuser_share=0.5,
+                     abuser_class="best_effort")
+POLICIES = ["admission", "reactive", "fairness", "sharded", "bandit"]
+POLICY_SLO_SCALE = 2.0
+SYNC_INTERVAL_S = 1.0    # the sharded replicas' view sync
+TRAIN_SEED = 91          # the bandit's exploration trace, never evaluated
+
+
+def accounting(out) -> dict:
+    """Where each request ended: finished, or failed by its own admission
+    shed, fairness throttle or lost capacity, or cascaded from an
+    ancestor's rejection; ``open`` counts requests that did neither."""
+    acc = dict(finished=0, shed=0, throttled=0, cascaded=0, lost=0, open=0)
+    own = {"shed": "shed", "throttle": "throttled", "lost": "lost"}
+    for sr in out:
+        if sr.finished_at is not None:
+            acc["finished"] += 1
+        elif sr.state == "failed":
+            tags = [ev for _, ev, _ in sr.journey]
+            kind = next((own[t] for t in tags if t in own), None)
+            if kind is None and any(t.startswith("cascade:") for t in tags):
+                kind = "cascaded"
+            acc[kind or "lost"] += 1
+        else:
+            acc["open"] += 1
+    return acc
+
+
+def _bandit(predictor, eps: float, seed: int, state=None) -> BanditRouter:
+    b = BanditRouter(predictor=predictor, eps=eps, seed=seed)
+    if state is not None:
+        b.load_state(state)
+        b.eps = eps
+    return b
+
+
+def policy_runs(predictor, prof: Optional[LatencyProfile], *,
+                n: int = 400) -> List[dict]:
+    """The rest of GoodServe's control plane on fig6's trace (``n``
+    requests at 10/s, seed 3, SLO scale 2) over the pool with the
+    profiled H100, one row per policy with ``summarize_elastic``'s
+    metrics and ``accounting``:
+
+    * ``admission``: GoodServe with early-shed admission (fig13's margin 3);
+    * ``reactive``: GoodServe with ``ReactivePoolController``'s defaults;
+    * ``fairness``: fig18's fair plane on the trace tagged with an abusive
+      tenant (``assign_tenants``);
+    * ``sharded``: four GoodServe gateway replicas, each with its own
+      beliefs, over views synced every second;
+    * ``bandit``: fig20's ``train_offline``: a bandit explores (eps 0.5)
+      on another seed's trace with ``record=True``, a second one is
+      warm-started from that trace and serves this one (eps 0.3, recorded);
+      its greedy posterior's ``dr_estimate`` on the recorded trace sits
+      beside the value of its live ``replay_whatif`` on the same trace.
+    """
+    def pool():
+        return build_pool("h100", prof)
+
+    def trace(seed=3):
+        return make_workload(n=n, rps=10.0, slo_scale=POLICY_SLO_SCALE,
+                             model=MODEL, seed=seed)
+
+    def goodserve(beliefs=None):
+        if beliefs is not None:
+            return make_router("goodserve", beliefs=beliefs)
+        return make_router("goodserve", predictor=predictor)
+
+    rows = []
+    for name in POLICIES:
+        reqs, extra = trace(), {}
+        if name == "admission":
+            plane = ControlPlane(router=goodserve(), admission=
+                                 AdmissionController(predictor, margin=3.0))
+        elif name == "reactive":
+            ctl = ReactivePoolController()
+            plane = ControlPlane(router=goodserve(), pool=ctl)
+        elif name == "fairness":
+            assign_tenants(reqs, TENANTS, seed=4)
+            beliefs = Beliefs(predictor=predictor)
+            plane = ControlPlane(
+                router=goodserve(beliefs), beliefs=beliefs,
+                admission=AdmissionController(beliefs=beliefs, margin=3.0),
+                fairness=FairnessPolicy(
+                    quantum_tps=40000.0, burst_s=2.0, overload_pending=4.0,
+                    class_shed={"best_effort": 16.0, "standard": 32.0},
+                    preempt=True, park_timeout_s=15.0, release_pending=4.0))
+        elif name == "sharded":
+            def replica(_i):
+                beliefs = Beliefs(predictor=predictor)
+                return ControlPlane(router=goodserve(beliefs),
+                                    beliefs=beliefs)
+            plane = make_sharded_plane(4, replica,
+                                       sync_interval_s=SYNC_INTERVAL_S)
+        elif name == "bandit":
+            explore = ControlPlane(router=_bandit(predictor, 0.5, seed=1),
+                                   record=True)
+            Simulator(pool(), explore, trace(TRAIN_SEED), tau=50).run()
+            logged = explore.trace
+            warm = _bandit(predictor, 0.3, seed=2)
+            warm.warm_start(logged)
+            plane = ControlPlane(router=warm, record=True)
+        cluster = pool()
+        sim = Simulator(cluster, plane, reqs, tau=50)
+        t0 = time.perf_counter()
+        out, dur = sim.run()
+        sim_s = time.perf_counter() - t0
+        if name == "reactive":
+            extra["pool_events"] = [list(e) for e in ctl.events]
+        elif name == "fairness":
+            fair = plane.fairness
+            extra.update(throttles=len(fair.throttle_log),
+                         class_sheds=len(fair.shed_log),
+                         preempted_parked=len(fair.preempt_log),
+                         released=len(fair.release_log))
+        elif name == "sharded":
+            extra.update(replicas=len(plane.shards),
+                         sync_interval_s=SYNC_INTERVAL_S,
+                         conflicts=len(plane.conflict_log),
+                         max_staleness_s=max(sh.max_staleness
+                                             for sh in plane.shards))
+        elif name == "bandit":
+            state, recorded = warm.state(), plane.trace
+            est = dr_estimate(recorded,
+                              _bandit(predictor, 0.0, seed=8, state=state))
+            live = realized_value(replay_whatif(
+                recorded, lambda c: ControlPlane(
+                    router=_bandit(predictor, 0.0, seed=8, state=state)),
+                pool), recorded)
+            extra.update(dr_value=est["value"], whatif_value=live,
+                         dr_match_rate=est["match_rate"],
+                         warm_start_events=len(logged.events))
+        rows.append({"policy": name, "pool": "h100",
+                     "slo_scale": POLICY_SLO_SCALE,
+                     **summarize_elastic(out, dur, cluster),
+                     "accounting": accounting(out), **extra,
+                     "sim_s": sim_s})
+    return rows
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
@@ -232,7 +388,14 @@ def main(argv=None) -> dict:
             print(f"{r['pool']:6s} {r['slo_scale']:4.1f} {r['router']:14s} "
                   f"{r['goodput_rps']:10.3f} "
                   f"{100 * r['violation_ratio']:6.1f}% {r['n_finished']:5d}")
-    return {"predictor": pred, "fit": fit, "profile": prof, "rows": rows}
+    policies = policy_runs(pred, prof)
+    for r in policies:
+        acc = " ".join(f"{k}={v}" for k, v in r["accounting"].items())
+        print(f"h100   {r['slo_scale']:4.1f} {r['policy']:14s} "
+              f"{r['goodput_rps']:10.3f} {100 * r['violation_ratio']:6.1f}% "
+              f"{acc}")
+    return {"predictor": pred, "fit": fit, "profile": prof, "rows": rows,
+            "policies": policies}
 
 
 if __name__ == "__main__":

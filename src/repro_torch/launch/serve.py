@@ -14,13 +14,13 @@ prefill paths.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \\
       --n-requests 12 --engines 2                       # full width, CUDA
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-      --size reduced
+      --size reduced [--arch minicpm-2b]
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,14 +40,18 @@ SIZES: Dict[str, dict] = {
 }
 
 
-def build_engines(cfg, n_engines: int, size: str, device,
-                  seed: int = 0) -> List[InferenceEngine]:
+def build_engines(cfg, n_engines: int, size: str, device, seed: int = 0,
+                  max_batch: Optional[int] = None) -> List[InferenceEngine]:
     """``n_engines`` engines over one shared weight set; odd-numbered ones
-    stage prompts through chunked prefill."""
+    stage prompts through chunked prefill.  ``max_batch`` overrides the
+    size's slots per engine (qwen3-32b's 65.5 GB of bf16 weights leave
+    room for two engines of 4 slots at ``max_len`` 4096 on an 80 GB
+    card, not of 8)."""
     s = SIZES[size]
     dev = resolve_device(device)
     params = init_params(cfg, seed=seed, dtype=s["dtype"], device=dev)
-    return [InferenceEngine(cfg, params, max_batch=s["max_batch"],
+    return [InferenceEngine(cfg, params,
+                            max_batch=max_batch or s["max_batch"],
                             max_len=s["max_len"], page_size=s["page_size"],
                             prefill_chunk=s["prefill_chunk"] if i % 2 else None,
                             device=dev)

@@ -3,7 +3,8 @@
 ``repro.models.init_params`` draws from ``jax.random`` (``model.py:53-80``),
 which torch cannot reproduce, so this bridge is how both packages compute
 with the same weights.  The JAX tree holds ``embed``, ``final_norm``,
-``lm_head`` and a ``stages`` list; each stage maps ``blk{i}`` to that
+``lm_head``, ``prefix_proj`` (configs with prefix embeddings) and a
+``stages`` list; each stage maps ``blk{i}`` to that
 pattern slot's ``attn``, ``mixer`` (mamba) and ``ffn`` dicts, whichever the
 layer has, with a leading repeat axis.  Leaves keep their dtype: a bf16
 tree's ``A_log``, ``D`` and ``dt_bias`` stay float32.  The
@@ -19,6 +20,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import frozen
 from repro_torch.models.model import Block, Model, check_supported
+
+# the tree's top-level leaves, each present or not as the config says
+TOP_KEYS = ("embed", "final_norm", "lm_head", "prefix_proj")
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -41,7 +45,7 @@ def from_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> Model:
     dev = resolve_device(device)
     check_supported(cfg)
     top = {k: _to_tensor(tree[k], dev)
-           for k in ("embed", "final_norm", "lm_head") if k in tree}
+           for k in TOP_KEYS if k in tree}
     blocks = []
     for si, stage in enumerate(cfg.stages):
         sp = tree["stages"][si]

@@ -1,8 +1,9 @@
 """Model assembly: parameter init, prefill, chunked prefill, decode.
 
 Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
-``padded_vocab`` (:45-50), ``init_params`` (:53-80), ``model_forward``
-(:187-196), ``logits_fn`` (:205-207), ``prefill`` (:210-226),
+``padded_vocab`` (:45-50), ``init_params`` (:53-80), ``embed_tokens``
+(:177-184), ``model_forward`` (:187-196), ``logits_fn`` (:205-207),
+``prefill`` (:210-226),
 ``init_cache(ring=False)`` (:229-270), ``prefill_chunk`` (:273-344) and
 ``decode_step`` (:373-438).  Differences:
 
@@ -20,7 +21,11 @@ Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
   and one ``pos`` for the batch.
 
 Layers run ``full`` attention or ``mamba`` mixers, each with a dense FFN or
-none; other mixers and FFNs raise ``NotImplementedError``.
+none; other mixers and FFNs raise ``NotImplementedError``, as does an
+attention softcap.  Configs with stub-frontend prefix embeddings
+(``n_prefix_embeds``) hold ``prefix_proj``; ``model_forward`` and
+``prefill`` take the embeddings, and the engine serves such configs
+text-only, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -77,7 +82,8 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     """Parameters of a decoder: ``embed`` [V, d], ``final_norm`` [d],
-    ``lm_head`` [d, V] unless embeddings are tied, and ``layers``."""
+    ``lm_head`` [d, V] unless embeddings are tied, ``prefix_proj`` [d, d]
+    where the config has prefix embeddings, and ``layers``."""
 
     def __init__(self, cfg: ModelConfig, top: nn.ParameterDict,
                  layers: List[Block]):
@@ -103,10 +109,10 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: the port runs {'/'.join(MIXERS)} mixers with "
                 f"a {'/'.join(FFNS)} FFN, got mixer={blk.mixer!r} "
                 f"ffn={blk.ffn!r}")
-    if cfg.logit_softcap is not None or cfg.n_prefix_embeds:
+    if cfg.logit_softcap is not None:
         raise NotImplementedError(
-            f"{cfg.name}: attention softcap and prefix embeddings are not "
-            f"ported (the paged decode kernel has no softcap)")
+            f"{cfg.name}: attention softcap is not ported (the paged decode "
+            f"kernel has no softcap)")
 
 
 def padded_vocab(cfg: ModelConfig, multiple: int = 256) -> int:
@@ -133,6 +139,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
            "final_norm": torch.zeros((d,), dtype=dtype, device=dev)}
     if not cfg.tie_embeddings:
         top["lm_head"] = L._normal(gen, (d, V), d ** -0.5, dtype)
+    if cfg.n_prefix_embeds:
+        top["prefix_proj"] = L._normal(gen, (d, d), d ** -0.5, dtype)
     blocks = []
     for blk in cfg.layer_list():
         attn = (L.init_attention(cfg, gen, dtype) if blk.mixer == "full"
@@ -144,8 +152,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return Model(cfg, L.frozen(top), blocks)
 
 
-def embed_tokens(model: Model, tokens):
-    return model.top["embed"][tokens]
+def embed_tokens(model: Model, tokens, prefix_embeds=None):
+    """Token embeddings [B, S, d]; with ``prefix_embeds`` [B, n, d] (a
+    config with ``n_prefix_embeds`` only), their projection comes first,
+    [B, n + S, d]."""
+    x = model.top["embed"][tokens]
+    if model.cfg.n_prefix_embeds and prefix_embeds is not None:
+        pre = prefix_embeds.to(x.dtype) @ model.top["prefix_proj"]
+        x = torch.cat([pre, x], dim=1)
+    return x
 
 
 def logits_fn(model: Model, hidden):
@@ -173,23 +188,26 @@ def _run_layers(model: Model, x, positions, collect: bool):
     return L.rms_norm(x, model.top["final_norm"], cfg.norm_eps), states
 
 
-def model_forward(model: Model, tokens):
+def model_forward(model: Model, tokens, prefix_embeds=None):
     """Teacher-forcing forward.  Returns (final_hidden [B, S, d], aux_loss);
-    aux_loss is 0 for a dense model."""
-    x = embed_tokens(model, tokens)
+    aux_loss is 0 for a dense model.  S counts the prefix positions."""
+    x = embed_tokens(model, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x, _ = _run_layers(model, x, positions, collect=False)
     return x, torch.zeros((), device=x.device)
 
 
-def prefill(model: Model, tokens) -> Tuple[torch.Tensor, list]:
-    """Process a prompt [B, S].  Returns (last-token logits [B, V], one
-    decode state per layer): (k, v) of shape [B, S, KV, hd] for an
+def prefill(model: Model, tokens,
+            prefix_embeds=None) -> Tuple[torch.Tensor, list]:
+    """Process a prompt [B, S] (after ``prefix_embeds`` [B, n, d], if
+    given: then S counts the n prefix positions too).  Returns (last-token
+    logits [B, V], one decode state per layer): (k, v) of shape
+    [B, S, KV, hd] for an
     attention layer, for the engine to write into pages; (conv tail
     {"x", "B", "C"} [B, K-1, ·], SSM state [B, H, P, N] f32) for a mamba
     layer, for the engine to write into a state slot."""
-    x = embed_tokens(model, tokens)
+    x = embed_tokens(model, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     x, states = _run_layers(model, x, positions, collect=True)

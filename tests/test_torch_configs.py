@@ -1,0 +1,173 @@
+"""The dense configs beyond the testbed backends against the JAX package on
+bridged fp32 weights: minicpm-2b (MHA, tied embeddings), qwen3-32b
+(qk_norm), and internvl2-1b and musicgen-medium, whose stub frontends feed
+prefix embeddings through ``prefix_proj``.  Logits within 1e-4 (with the
+prefix embeddings where the config has them: their positions shift RoPE
+for every token after them); greedy engine tokens identical one-shot and
+chunked.  Plus the copied stage builder and shape table."""
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import base as jax_base  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduce_config as jax_reduce  # noqa: E402
+from repro.engine.engine import EngineRequest as JReq  # noqa: E402
+from repro.engine.engine import InferenceEngine as JEngine  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro_torch.configs import base as port_base  # noqa: E402
+from repro_torch.configs import get_config, reduce_config  # noqa: E402
+from repro_torch.engine.engine import EngineRequest, InferenceEngine  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.convert import from_jax_params  # noqa: E402
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+ARCHS = ["minicpm-2b", "qwen3-32b", "internvl2-1b", "musicgen-medium"]
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+PREFIX_ARCHS = ["internvl2-1b", "musicgen-medium"]
+
+
+@functools.lru_cache(maxsize=None)
+def _bridge(arch):
+    jcfg = jax_reduce(jax_get_config(arch), layers_per_stage=2)
+    tcfg = reduce_config(get_config(arch), layers_per_stage=2)
+    params = JM.init_params(jcfg, jax.random.PRNGKey(3), dtype=jnp.float32)
+    model = from_jax_params(jax.tree.map(np.asarray, params), tcfg,
+                            device="cpu")
+    return jcfg, tcfg, params, model
+
+
+@pytest.fixture(params=ARCHS)
+def bridged(request):
+    return _bridge(request.param)
+
+
+def _inputs(cfg, seed, B=2, S=21):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    pre = (rng.standard_normal((B, cfg.n_prefix_embeds, cfg.d_model))
+           .astype(np.float32) if cfg.n_prefix_embeds else None)
+    return toks, pre
+
+
+def test_reduced_shapes_keep_the_config_features(bridged):
+    _, tcfg, params, model = bridged
+    full = get_config(tcfg.name[:-len("-reduced")])
+    assert tcfg.qk_norm == full.qk_norm and tcfg.act == full.act
+    assert ("q_norm" in model.layers[0].attn) == full.qk_norm
+    assert ("lm_head" in model.top) != full.tie_embeddings
+    assert ("prefix_proj" in model.top) == bool(full.n_prefix_embeds)
+    if full.n_prefix_embeds:
+        assert tuple(model.top["prefix_proj"].shape) == (tcfg.d_model,) * 2
+        np.testing.assert_array_equal(_np(model.top["prefix_proj"]),
+                                      np.asarray(params["prefix_proj"]))
+
+
+def test_forward_and_prefill_logits_match_jax(bridged):
+    jcfg, tcfg, params, model = bridged
+    toks, pre = _inputs(tcfg, 11)
+    jpre = None if pre is None else jnp.asarray(pre)
+    tpre = None if pre is None else torch.from_numpy(pre)
+    jh, _ = JM.model_forward(params, jcfg, jnp.asarray(toks, jnp.int32),
+                             prefix_embeds=jpre, remat=False)
+    th, _ = TM.model_forward(model, torch.from_numpy(toks), tpre)
+    n = tcfg.n_prefix_embeds
+    assert th.shape == (2, n + toks.shape[1], tcfg.d_model)
+    np.testing.assert_allclose(_np(th), _np(jh), **TOL)
+    jl, jcache = JM.prefill(params, jcfg, jnp.asarray(toks, jnp.int32),
+                            max_len=64, prefix_embeds=jpre)
+    tl, kv = TM.prefill(model, torch.from_numpy(toks), tpre)
+    assert list(np.asarray(jcache["pos"])) == [n + toks.shape[1]] * 2
+    assert kv[0][0].shape[1] == n + toks.shape[1]   # the cache counts them
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    if n:                                   # the prefix changes the logits
+        plain, _ = TM.prefill(model, torch.from_numpy(toks))
+        assert not np.allclose(_np(plain), _np(tl), **TOL)
+
+
+@pytest.mark.parametrize("arch", PREFIX_ARCHS)
+def test_prefix_positions_shift_rope(arch):
+    """The text's K after a prefix of n equals its K computed alone at
+    positions n..: the prefix moves positions, not the text's values."""
+    _, tcfg, _, model = _bridge(arch)
+    n = tcfg.n_prefix_embeds
+    assert n > 0
+    toks, pre = _inputs(tcfg, 12, B=1, S=5)
+    _, kv = TM.prefill(model, torch.from_numpy(toks), torch.from_numpy(pre))
+    blk = model.layers[0].attn
+    x = TM.embed_tokens(model, torch.from_numpy(toks))
+    h = TL.rms_norm(x, blk["ln"], tcfg.norm_eps)
+    _, k, _ = TL._qkv(blk, tcfg, h, torch.arange(n, n + 5)[None])
+    np.testing.assert_allclose(_np(kv[0][0][:, n:]), _np(k), **TOL)
+
+
+def _serve(eng, req_cls, prompts, max_new=6):
+    for rid, p in enumerate(prompts):
+        eng.submit(req_cls(rid=rid, tokens=list(p), prompt_len=len(p),
+                           max_new_tokens=max_new))
+    return {r.rid: r.generated for r in eng.run_until_drained()}
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_engine_tokens_match_jax_engine(bridged, chunk):
+    """Text-only serving, as the JAX engine serves these configs."""
+    jcfg, tcfg, params, model = bridged
+    rng = np.random.default_rng(5)
+    prompts = [[int(x) for x in rng.integers(0, tcfg.vocab_size, n)]
+               for n in (17, 9, 12)]
+    got = _serve(InferenceEngine(tcfg, model, max_batch=2, max_len=64,
+                                 prefill_chunk=chunk, device="cpu"),
+                 EngineRequest, prompts)
+    want = _serve(JEngine(jcfg, params, max_batch=2, max_len=64,
+                          prefill_chunk=chunk), JReq, prompts)
+    assert got == want and len(got) == 3
+
+
+def test_random_init_draws_the_prefix_projection():
+    cfg = reduce_config(get_config("internvl2-1b"))
+    model = TM.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    w = model.top["prefix_proj"]
+    assert tuple(w.shape) == (cfg.d_model, cfg.d_model)
+    assert abs(float(w.std()) - cfg.d_model ** -0.5) < 0.2 * cfg.d_model ** -0.5
+    assert "prefix_proj" not in TM.init_params(
+        reduce_config(get_config("minicpm-2b")), seed=0, dtype=torch.float32,
+        device="cpu").top
+
+
+def test_softcap_still_raises():
+    cfg = dataclasses.replace(reduce_config(get_config("minicpm-2b")),
+                              logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        TM.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("args", [(26, 5, 512), (62, 5, 1024), (12, 3, 64),
+                                  (4, 5, 8)])
+def test_local_global_stages_match_jax(args):
+    t = port_base.local_global_stages(*args)
+    j = jax_base.local_global_stages(*args)
+    assert [dataclasses.asdict(s) for s in t] == \
+        [dataclasses.asdict(s) for s in j]
+
+
+def test_shapes_and_block_kinds_match_jax():
+    assert {k: dataclasses.asdict(v) for k, v in port_base.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in jax_base.SHAPES.items()}
+    for arch in ARCHS + ["mamba2-1.3b"]:
+        t, j = get_config(arch), jax_get_config(arch)
+        assert [(si, pi, dataclasses.astuple(b))
+                for si, pi, b in t.block_kinds()] == \
+            [(si, pi, dataclasses.astuple(b)) for si, pi, b in j.block_kinds()]

@@ -246,11 +246,34 @@ def test_run_experiment_equal_jax(history):
     assert TH.aggregate_results(t) == JH.aggregate_results(j)
 
 
-def test_unported_modules_raise():
-    with pytest.raises(NotImplementedError, match="A11"):
-        TR.make_router("bandit")
-    with pytest.raises(NotImplementedError, match="A11"):
-        TC.ControlPlane(TR.make_router("random"), record=True)
+def test_bandit_router_seam_builds_the_ports_bandit():
+    """``make_router("bandit")`` reaches the port's ``BanditRouter`` and
+    routes a run as the reference's does."""
+    from repro_torch.core.learned_router import BanditRouter
+    router = TR.make_router("bandit", seed=5)
+    assert isinstance(router, BanditRouter)
+    (js, _, jres), (ts, _, tres) = _summaries(
+        "bandit", 2.0, (None, None), n=80)
+    assert ts == js and ts["n_finished"] == 80
+    assert [(r.req.rid, r.instance, r.journey) for r in tres] == \
+        [(r.req.rid, r.instance, r.journey) for r in jres]
+
+
+def test_record_seam_records_a_trace_the_reference_loads():
+    """``ControlPlane(record=True)`` holds the port's ``TraceRecorder``;
+    its trace equals the reference's and loads there."""
+    from repro.core.replay import DecisionTrace as JTrace
+    from repro_torch.core.replay import TraceRecorder
+    traces = []
+    for sim_mod, wl, cp, rt in ((JS, JW, JC, JR), (TS, TW, TC, TR)):
+        plane = cp.ControlPlane(rt.make_router("least_request"), record=True)
+        sim_mod.Simulator(sim_mod.build_paper_cluster(), plane,
+                          wl.make_workload(n=60, seed=3), tau=50).run()
+        traces.append(plane.trace)
+    assert isinstance(plane.recorder, TraceRecorder)
+    assert traces[1].to_json() == traces[0].to_json()
+    assert JTrace.from_json(traces[1].to_json()).to_json() == \
+        traces[0].to_json()
 
 
 def test_goodput_pools_run_the_profile(cpu_profile, history):

@@ -15,7 +15,8 @@ from repro.models import init_params as jax_init_params  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.models.convert import from_jax_params, to_numpy_tree  # noqa: E402
 
-ARCHS = ["llama3.1-8b", "qwen2.5-14b", "mamba2-1.3b"]
+ARCHS = ["llama3.1-8b", "qwen2.5-14b", "mamba2-1.3b", "minicpm-2b", "qwen3-32b",
+         "internvl2-1b", "musicgen-medium"]
 
 
 def _leaves(tree, prefix=""):
