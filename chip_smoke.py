@@ -60,10 +60,16 @@ JAX.  Phases, each printing one JSON line:
    minicpm-2b's (B=8, H=36 over KV=36, hd 64: one query row per KV head)
    and internvl2-1b's (B=8, H=14 over KV=2, hd 64: seven) with every row
    at ctx 1025 over the engine's 4096-slot table, and flash attention at
-   minicpm-2b's prefill (Lq=Lk=2000, H=36 over KV=36, hd 64);
+   minicpm-2b's prefill (Lq=Lk=2000, H=36 over KV=36, hd 64), and the SSD
+   scan at jamba-v0.1-52b's prefill (B=1, L=2048, H=128 heads of P=64,
+   one group of N=16, chunk 256; ``SSD_BRANCHES`` holds an untimed
+   P=64, N=16 shape too);
 3. reduced: reduced llama3.1-8b, mamba2-1.3b, a hybrid (a mamba layer,
-   then full attention), minicpm-2b, qwen3-32b (qk_norm), internvl2-1b
-   and musicgen-medium in fp32, each served on the kernel path and on the
+   then full attention), minicpm-2b, qwen3-32b (qk_norm), internvl2-1b,
+   musicgen-medium, deepseek-v2-lite-16b (MLA and MoE: no kernel, the
+   latent cache) and jamba-v0.1-52b (two periods: mamba, attention and
+   MoE in one decode graph) in fp32, each served on the kernel path and
+   on the
    CPU plain path with the same weights, in three cases: batched,
    chunked, and staggered (rows finishing at different steps, pages
    handed out again): greedy tokens must match, and every decode step of
@@ -71,21 +77,28 @@ JAX.  Phases, each printing one JSON line:
    configs with prefix embeddings, ``prefill`` logits and the forward
    pass's hidden states with random prefix embeddings must agree within
    1e-4 (the engine serves them text-only);
-4. serve: full-width llama3.1-8b, mamba2-1.3b, qwen3-32b and minicpm-2b,
-   in bf16 (random weights from a seed), each on two engines sharing one
-   weight set, 12 requests through the EMA-routed launcher; each model's
-   memory is freed before the next is built.  qwen3-32b's engines hold 4
-   slots each, not 8: its 65.5 GB of weights leave no room for 8 slots of
-   4096 tokens twice (the line's ``cut``).  The attention models' odd
-   engine prefills in chunks, mamba's engines both prefill in one shot.
+4. serve: full-width llama3.1-8b, mamba2-1.3b, qwen3-32b, minicpm-2b,
+   deepseek-v2-lite-16b (whole: 27 layers, 15.7 B parameters) and
+   jamba-v0.1-52b at two of its four periods (16 of 32 layers, 26.0 B
+   parameters; the line's ``cut``), in bf16 (random weights from a seed),
+   each on two engines sharing one weight set, 12 requests through the
+   EMA-routed launcher; each model's memory is freed before the next is
+   built.  qwen3-32b's engines hold 4 slots each, not 8: its 65.5 GB of
+   weights leave no room for 8 slots of 4096 tokens twice (the line's
+   ``cut``).  The full-attention models' odd engine prefills in chunks;
+   the models with mamba or MLA layers prefill in one shot on both.
    Every request must finish, and every prefill and decode layer must
-   have launched its kernel: the launch counts are set to 0 just before each
-   model's run and read just after it (the engines, built before, capture
-   their decode graphs without counting; each replay counts the launches
-   its capture recorded).  Each engine's decode steps must all be graph
-   replays; the ``decode_graph`` line gives each engine's capture seconds
-   beside TPOT, decode tokens/s and peak memory (the ``serve`` line puts
-   the card's ``nvidia-smi`` line beside it);
+   have launched its kernel, exactly: flash and paged once per attention
+   layer per prefill call and decode step, ssd once per mamba layer per
+   prefill call (deepseek: none).  The launch counts are set to 0 just
+   before each model's run and read just after it (the engines, built
+   before, capture their decode graphs without counting; each replay
+   counts the launches its capture recorded).  Each engine's decode steps
+   must all be graph replays; the ``decode_graph`` line gives each
+   engine's capture seconds beside TPOT, decode tokens/s and peak memory
+   (the ``serve`` line puts the card's ``nvidia-smi`` line beside it, and
+   the time to read every weight once at 3.35 TB/s: decode's capacity
+   dispatch runs every expert each step);
 5. goodput: GoodServe's decision path through ``repro_torch.launch.goodput``.
    (a) ``measure_engine_profile`` on full-width llama3.1-8b in bf16
    (random weights from seed 0, one-shot prefill, ``max_len`` 4096, page
@@ -122,7 +135,9 @@ JAX.  Phases, each printing one JSON line:
 
 Then the ``kernels`` line (``launches``: the count from the phase-4 run of
 llama3.1-8b or mamba2-1.3b, whichever runs each kernel; ``launches_by_path``:
-each path's count, every phase-4 model's and the phase-5 profile's), the card's ``nvidia-smi`` line, and
+each path's count, every phase-4 model's and the phase-5 profile's;
+``at_model_rows``: the kernel's timed rows at the other served models'
+shapes), the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero without that last line, as does a machine without a CUDA device.
 """
@@ -355,14 +370,16 @@ PAGED_BRANCHES = [
 ]
 
 # bf16 rows at the decode and prefill shapes of the other served models,
-# timed as the llama rows are: (kernel, model, keyword arguments).  Decode
-# rows hold every sequence at ctx 1025 over the engine's 4096-slot table.
+# timed as the llama and mamba rows are: (kernel, model, keyword
+# arguments).  Decode rows hold every sequence at ctx 1025 over the
+# engine's 4096-slot table.
 MODEL_ROWS = [
     ("paged_attention", "qwen3-32b", dict(B=4, H=64, KV=8, hd=128, ctx=1025)),
     ("paged_attention", "minicpm-2b", dict(B=8, H=36, KV=36, hd=64, ctx=1025)),
     ("paged_attention", "internvl2-1b", dict(B=8, H=14, KV=2, hd=64, ctx=1025)),
     ("flash_attention", "minicpm-2b", dict(Lq=2000, Lk=2000, H=36, KV=36,
                                            hd=64)),
+    ("ssd", "jamba-v0.1-52b", dict(L=2048, H=128, P=64, G=1, N=16)),
 ]
 
 
@@ -544,15 +561,16 @@ def _ssd_errors(y, st, yr, str_) -> dict:
             "rel_err": max(ry, rs) if ry == ry and rs == rs else math.nan}
 
 
-def ssd_case(L: int, dtype_name: str, seed: int):
-    """mamba2-1.3b's scan at B=1: H=64 heads of P=64, one group of N=128,
-    chunk 256.  ``ms`` repeats one input set (warm in the 50 MB L2);
-    ``ms_cold`` cycles over enough input sets (at least three) that their
-    bytes exceed twice the L2."""
+def ssd_case(L: int, dtype_name: str, seed: int, H: int = 64, P: int = 64,
+             G: int = 1, N: int = 128):
+    """mamba2-1.3b's scan at B=1 (H=64 heads of P=64, one group of N=128,
+    unless H, P, G, N say another model's), chunk 256.  ``ms`` repeats one
+    input set (warm in the 50 MB L2); ``ms_cold`` cycles over enough input
+    sets (at least three) that their bytes exceed twice the L2."""
     import torch
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.kernels.ssd.ref import ssd_ref
-    B, H, P, G, N, Q = 1, 64, 64, 1, 128, 256
+    B, Q = 1, 256
     g = torch.Generator(device="cuda").manual_seed(seed)
     args = _ssd_inputs(B, L, H, P, G, N, dtype_name, g)
     y, st = ssd(*args, chunk=Q)
@@ -573,7 +591,8 @@ def ssd_case(L: int, dtype_name: str, seed: int):
                      for _ in range(n_sets - 1)]
     turn = itertools.cycle(range(n_sets))
     return {
-        "B": B, "L": L, "dtype": dtype_name, **_ssd_errors(y, st, yr, str_),
+        "B": B, "L": L, "H": H, "P": P, "G": G, "N": N, "chunk": Q,
+        "dtype": dtype_name, **_ssd_errors(y, st, yr, str_),
         "ms": time_ms(lambda: ssd(*args, chunk=Q)),
         "ms_cold": time_ms(lambda: ssd(*sets[next(turn)], chunk=Q)),
         "cold_sets": n_sets,
@@ -597,6 +616,7 @@ SSD_BRANCHES = [
     (1, 3072, 8, 64, 1, 128, 256, None),    # 12 chunks of 256
     (2, 128, 8, 64, 2, 128, 64, 80),        # trailing dt = 0 rows
     (1, 512, 8, 16, 1, 16, 256, 496),       # trailing rows in a long chunk
+    (1, 512, 16, 64, 1, 16, 256, 400),      # jamba's P = 64, N = 16
 ]
 
 
@@ -664,14 +684,20 @@ def check_kernels():
         if name == "paged_attention":
             kw = dict(kw)
             r = paged_width_case(kw.pop("B"), 500 + i, **kw)
-        else:
+        elif name == "flash_attention":
             r = flash_case(dtype_name="bfloat16", seed=500 + i, **kw)
+        else:
+            r = ssd_case(dtype_name="bfloat16", seed=500 + i, **kw)
         emit({"phase": "kernel_model", "name": name, "model": model, **r})
-        if not r["max_abs_err"] <= TOL["bfloat16"]:       # NaN fails too
+        cases.setdefault("model_rows", []).append(
+            {"name": name, "model": model, **r})
+        ok = (r["rel_err"] <= TOL["float32"] if name == "ssd"
+              else r["max_abs_err"] <= TOL["bfloat16"])   # NaN fails too
+        if not ok:
             raise AssertionError(f"{name} at {model}'s shape disagrees with "
                                  f"its plain version: {r}")
-    for name, rows in cases.items():
-        for r in rows:
+    for name in ("paged_attention", "flash_attention", "ssd"):
+        for r in cases[name]:
             emit({"phase": "kernel", "name": name, **r})
             ok = (r["rel_err"] <= TOL["float32"] if name == "ssd"
                   else r["max_abs_err"] <= TOL[r["dtype"]])   # NaN fails
@@ -706,7 +732,8 @@ def check_kernels():
 # ---------------------------------------------------------------------------
 
 REDUCED_ARCHS = ("llama3.1-8b", "mamba2-1.3b", "hybrid", "minicpm-2b",
-                 "qwen3-32b", "internvl2-1b", "musicgen-medium")
+                 "qwen3-32b", "internvl2-1b", "musicgen-medium",
+                 "deepseek-v2-lite-16b", "jamba-v0.1-52b")
 
 
 def wrappers():
@@ -716,14 +743,23 @@ def wrappers():
 
 
 def path_kernels(cfg):
-    """The kernels the serving path of ``cfg`` launches."""
+    """The kernels the serving path of ``cfg`` launches (MLA runs none)."""
     from repro_torch.models.model import layer_caches
-    by_cache = {"kv": {"flash_attention", "paged_attention"}, "ssm": {"ssd"}}
+    by_cache = {"kv": {"flash_attention", "paged_attention"}, "ssm": {"ssd"},
+                "mla": set()}
     return set().union(*(by_cache[kind] for kind, _ in layer_caches(cfg)))
 
 
+def layer_counts(cfg) -> dict:
+    """{cache kind: the layers that use it}: "kv" attention, "mla", "ssm"."""
+    from repro_torch.models.model import layer_caches
+    kinds = [kind for kind, _ in layer_caches(cfg)]
+    return {k: kinds.count(k) for k in ("kv", "mla", "ssm")}
+
+
 def reduced_config(arch: str):
-    """Reduced ``arch`` at two layers per stage; ``hybrid`` is reduced
+    """Reduced ``arch`` at two layers per stage (deepseek-v2-lite-16b: 3
+    MLA layers; jamba-v0.1-52b: 16, two periods); ``hybrid`` is reduced
     mamba2-1.3b cut to a mamba layer and a full-attention layer with a dense
     FFN, so one decode graph holds both caches."""
     import dataclasses
@@ -823,20 +859,32 @@ def check_reduced(arch: str):
 # phase 4: full-width models through the EMA-routed launcher
 # ---------------------------------------------------------------------------
 
-# (arch, slots per engine or None for the size's 8): qwen3-32b's 65.5 GB
-# of bf16 weights leave room for 2 x 4 slots of 4096 tokens (8.6 GB of KV)
-SERVED = (("llama3.1-8b", None), ("mamba2-1.3b", None),
-          ("qwen3-32b", 4), ("minicpm-2b", None))
+# (arch, slots per engine or None for the size's 8, periods of the stage or
+# None for all): qwen3-32b's 65.5 GB of bf16 weights leave room for 2 x 4
+# slots of 4096 tokens (8.6 GB of KV); jamba-v0.1-52b's four periods are
+# 102.9 GB, two (16 of 32 layers) 52.0 GB
+SERVED = (("llama3.1-8b", None, None), ("mamba2-1.3b", None, None),
+          ("qwen3-32b", 4, None), ("minicpm-2b", None, None),
+          ("deepseek-v2-lite-16b", None, None), ("jamba-v0.1-52b", None, 2))
 
 
-def serve_full_width(arch: str, card: str, max_batch=None):
+def served_config(arch: str, periods=None):
+    """``arch``'s config, its one stage repeated ``periods`` times where
+    given (full width, cut depth)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cut_periods
+    cfg = get_config(arch)
+    return cfg if periods is None else cut_periods(cfg, periods)
+
+
+def serve_full_width(arch: str, card: str, max_batch=None, periods=None):
     """``arch`` at full width on two engines of ``max_batch`` slots (the
-    size's 8 unless given), after the previous model's memory is freed."""
+    size's 8 unless given), at ``periods`` periods of its stage where
+    given, after the previous model's memory is freed."""
     import gc
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    cfg = get_config(arch)
+    cfg = served_config(arch, periods)
     max_new, n_req = 32, 12
     gc.collect()
     torch.cuda.empty_cache()
@@ -856,15 +904,19 @@ def serve_full_width(arch: str, card: str, max_batch=None):
     events = [ev for evs in report["events"] for ev in evs]
     prefills = [dt for kind, _, dt in events if kind == "prefill"]
     decodes = [(n, dt) for kind, n, dt in events if kind == "decode"]
-    # one flash or ssd launch per layer per one-shot prefill or prefill
-    # chunk, one paged launch per attention layer per decode step
+    # one flash or ssd launch per attention or mamba layer per one-shot
+    # prefill or prefill chunk, one paged launch per attention layer per
+    # decode step
     prefill_calls = sum(
         1 if e.prefill_chunk is None else math.ceil(r.prompt_len
                                                     / e.prefill_chunk)
         for e in engines for r in e.completed)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in engines[0].params.parameters())
     res = {
         "phase": "serve", "config": cfg.name, "dtype": "bfloat16",
-        "n_params": cfg.param_count(),
+        "n_params": cfg.param_count(), "num_layers": cfg.num_layers,
+        "layers_by_cache": layer_counts(cfg),
         "max_batch": [e.max_batch for e in engines],
         "max_len": [e.max_len for e in engines],
         "prefill_chunk": [e.prefill_chunk for e in engines],
@@ -882,12 +934,23 @@ def serve_full_width(arch: str, card: str, max_batch=None):
         "decode_tokens_per_s": (sum(n for n, _ in decodes)
                                 / sum(dt for _, dt in decodes)),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "weights_gb": weight_bytes / 1e9,
+        "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
         "nvidia_smi": card,
     }
+    cuts = []
     if max_batch is not None:
-        res["cut"] = (f"max_batch {max_batch} per engine (size default "
-                      f"{serve.SIZES['full']['max_batch']}): weights and KV "
-                      f"must fit the card")
+        cuts.append(f"max_batch {max_batch} per engine (size default "
+                    f"{serve.SIZES['full']['max_batch']}): weights and KV "
+                    f"must fit the card")
+    if periods is not None:
+        full = served_config(arch)
+        cuts.append(f"depth: {cfg.num_layers} of {full.num_layers} layers, "
+                    f"the stage repeated {periods} times, not "
+                    f"{full.stages[0].repeat} ({full.param_count():,} "
+                    f"parameters do not fit the card in bf16)")
+    if cuts:
+        res["cut"] = "; ".join(cuts)
     emit(res)
     # every decode step of every engine replayed the engine's graph
     steps = [sum(kind == "decode" for kind, _, _ in evs)
@@ -899,11 +962,11 @@ def serve_full_width(arch: str, card: str, max_batch=None):
              "decode_tokens_per_s": res["decode_tokens_per_s"],
              "peak_memory_gb": res["peak_memory_gb"]}
     emit(graph)
-    L = cfg.num_layers
+    n = layer_counts(cfg)
     kernels = path_kernels(cfg)
-    want = {"flash_attention": L * prefill_calls, "ssd": L * prefill_calls,
-            "paged_attention": L * len(decodes)}
-    want = {n: want[n] if n in kernels else 0 for n in want}
+    want = {"flash_attention": n["kv"] * prefill_calls,
+            "ssd": n["ssm"] * prefill_calls,
+            "paged_attention": n["kv"] * len(decodes)}
     if not (len(done) == n_req
             and all(len(r.generated) == max_new for r in done)
             and launches == want and all(want[n] > 0 for n in kernels)
@@ -1040,18 +1103,23 @@ def main() -> int:
     for arch in REDUCED_ARCHS:
         check_reduced(arch)
     launches, by_path = {}, {}
-    for arch, max_batch in SERVED:
-        ran = serve_full_width(arch, card, max_batch)
+    for arch, max_batch, periods in SERVED:
+        ran = serve_full_width(arch, card, max_batch, periods)
         if arch in ("llama3.1-8b", "mamba2-1.3b"):
             launches.update({n: ran[n]
                              for n in path_kernels(get_config(arch))})
-        by_path[f"{arch} serve"] = ran
+        cut = "" if periods is None else f" ({periods} periods)"
+        by_path[f"{arch}{cut} serve"] = ran
     prof, by_path["goodput profile (llama3.1-8b)"] = goodput_profile()
     pred = goodput_predictor()
     goodput_runs(pred, prof)
     goodput_policies(pred, prof)
 
     def line(name, route, source, replaces, row):
+        at_models = {r["model"]: {k: r[k] for k in ("ms", "bound_ms",
+                                                     "bound_by", "plain_ms",
+                                                     "library_ms")}
+                     for r in cases["model_rows"] if r["name"] == name}
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "launches_by_path": {p: c[name] for p, c in by_path.items()},
@@ -1060,7 +1128,8 @@ def main() -> int:
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "at": {k: row[k] for k in row if k in
                        ("B", "L", "Lq", "Lk", "dtype", "ctx_sum",
-                        "ctx_max")}}
+                        "ctx_max")},
+                "at_model_rows": at_models}
     paged = next(r for r in cases["paged_attention"]
                  if r["dtype"] == "bfloat16" and r["B"] == 8)
     flash = next(r for r in cases["flash_attention"]

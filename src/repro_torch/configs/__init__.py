@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` for the
 dense full-attention configs (the testbed backends, minicpm-2b,
-qwen3-32b, and the stub-frontend internvl2-1b and musicgen-medium) and the
-attention-free Mamba-2 model (counterpart of
-``repro/configs/__init__.py:41-45``).  Other architectures wait for the
-slices that port their mixers."""
+qwen3-32b, and the stub-frontend internvl2-1b and musicgen-medium), the
+attention-free Mamba-2 model, the MLA + MoE deepseek-v2-lite-16b and the
+mamba/attention/MoE hybrid jamba-v0.1-52b (counterpart of
+``repro/configs/__init__.py:41-45``).  The window-mixer configs (gemma3,
+mixtral) wait for the slice that ports their mixer."""
 from __future__ import annotations
 
 import importlib
@@ -20,6 +21,8 @@ _REGISTRY = {
     "musicgen-medium": "musicgen_medium",
     "llama3.1-8b": "llama31_8b",
     "qwen2.5-14b": "qwen25_14b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "jamba-v0.1-52b": "jamba_52b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)

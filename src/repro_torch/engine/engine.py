@@ -17,9 +17,10 @@ events deque.  Deliberate differences:
   free, into a CUDA graph (the counterpart of ``jax.jit``) and replayed on
   every step (``graph_replays`` counts them); a capture or replay that
   fails raises.  On the CPU the same padded step runs eagerly.  The engine
-  holds pages only for attention layers and per-slot states
+  holds pages only for attention layers, per-slot latent rows
+  (``LatentCache``) only for MLA layers and per-slot states
   (``SSMStateCache``) only for mamba layers; decode updates every slot's
-  state in place;
+  latent rows and state in place;
 * chunked prefill stages into a linear K/V buffer, as the JAX engine does,
   and flash attention sees it cut to ``pos0 + C`` rows.  When the prompt is
   complete its rows are copied into freshly allocated pages: for full
@@ -54,6 +55,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine.kv_cache import PagedKVCache
+from repro_torch.engine.latent_cache import LatentCache
 from repro_torch.engine.state_cache import SSMStateCache
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -82,7 +84,8 @@ class EngineRequest:
 
 class InferenceEngine:
     """Continuous-batching engine: ``max_batch`` slots over one paged KV
-    cache (attention layers) and one per-slot state cache (mamba layers)."""
+    cache (attention layers), one per-slot latent cache (MLA layers) and
+    one per-slot state cache (mamba layers)."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Model] = None, *,
                  max_batch: int = 8, max_len: int = 256, seed: int = 0,
@@ -108,6 +111,9 @@ class InferenceEngine:
                                    slots=max_batch, max_len=max_len,
                                    dtype=params.dtype, device=self.device)
                       if "kv" in kinds else None)
+        self.latent = (LatentCache(cfg, max_batch, max_len, dtype=params.dtype,
+                                   device=self.device)
+                       if "mla" in kinds else None)
         self.states = (SSMStateCache(cfg, max_batch, dtype=params.dtype,
                                      device=self.device)
                        if "ssm" in kinds else None)
@@ -135,31 +141,37 @@ class InferenceEngine:
 
     def _init_decode_inputs(self):
         """One packed int32 buffer on the host (pinned on the card) and its
-        device copy: tokens [B], then with attention layers context lengths
-        [B] and block tables [B, W]; the step's cache view reads the
-        device copy."""
+        device copy: tokens [B], then with attention or MLA layers context
+        lengths [B], then with attention layers block tables [B, W]; the
+        step's cache view reads the device copy."""
         B = self.max_batch
         n = B
+        if self.cache is not None or self.latent is not None:
+            n += B
         if self.cache is not None:
             table, _ = self.cache.table_view()
-            n += B + table.size
+            n += table.size
         self._host = torch.zeros(n, dtype=torch.int32,
                                  pin_memory=self.device.type == "cuda")
         self._dev = torch.zeros(n, dtype=torch.int32, device=self.device)
         self._view = {}
+        if n > B:
+            self._view["context_lens"] = self._dev[B:2 * B]
         if self.cache is not None:
-            self._view = {"k_pages": self.cache.k_pages,
-                          "v_pages": self.cache.v_pages,
-                          "context_lens": self._dev[B:2 * B],
-                          "block_tables": self._dev[2 * B:].view(B, -1)}
+            self._view.update({"k_pages": self.cache.k_pages,
+                               "v_pages": self.cache.v_pages,
+                               "block_tables": self._dev[2 * B:].view(B, -1)})
+        if self.latent is not None:
+            self._view.update(self.latent.decode_view())
         if self.states is not None:
             self._view.update(self.states.decode_view())
         self._fill_inputs([])
 
     def _fill_inputs(self, active: List[int]):
-        """Write the step's tokens (0 in free rows), context lengths and the
-        table rows that changed into the host buffer, then copy the parts
-        that changed to the device in one copy."""
+        """Write the step's tokens (0 in free rows), context lengths (the
+        paged cache's; without one, each request's tokens and 0 in free
+        rows) and the table rows that changed into the host buffer, then
+        copy the parts that changed to the device in one copy."""
         B = self.max_batch
         h = self._host.numpy()
         h[:B] = 0
@@ -174,6 +186,11 @@ class InferenceEngine:
             if rows:
                 h[2 * B:].reshape(B, -1)[rows] = table[rows]
                 n = h.size
+        elif self.latent is not None:
+            h[B:2 * B] = 0
+            for i in active:
+                h[B + i] = len(self.slots[i].tokens)
+            n = 2 * B
         self._dev[:n].copy_(self._host[:n], non_blocking=True)
 
     def _decode_body(self) -> torch.Tensor:
@@ -300,10 +317,14 @@ class InferenceEngine:
         logits, states = prefill(self.params, self._tokens(req.tokens)[None])
         kv = [(a[0], b[0]) for (kind, _), (a, b)
               in zip(self._layer_caches, states) if kind == "kv"]
+        mla = [(a[0], b[0]) for (kind, _), (a, b)
+               in zip(self._layer_caches, states) if kind == "mla"]
         ssm = [({k: v[0] for k, v in a.items()}, b[0]) for (kind, _), (a, b)
                in zip(self._layer_caches, states) if kind == "ssm"]
         if self.cache is not None:
             self._to_pages(slot, kv)
+        if self.latent is not None:
+            self.latent.write(slot, mla)
         if self.states is not None:
             self.states.write(slot, ssm)
         req.tokens.append(self._greedy(logits)[0])

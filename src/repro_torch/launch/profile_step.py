@@ -1,10 +1,11 @@
 """Trace engine steps of a full-width model on the card.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step \\
-      [--arch llama3.1-8b|mamba2-1.3b] [--batch 8] [--prompt 1024] \\
+      [--arch llama3.1-8b] [--periods N] [--batch 8] [--prompt 1024] \\
       [--steps 5] [--out build/profile_step]
 
-One engine (bf16, random weights from a seed) admits ``--batch`` requests
+One engine (bf16, random weights from a seed; ``--periods`` cuts a
+one-stage config's depth, as jamba-v0.1-52b needs) admits ``--batch`` requests
 of ``--prompt`` tokens one-shot; the admission step is traced as prefill.
 Then ``--steps`` decode steps are traced with ``torch.profiler``: on the
 card each is one replay of the engine's CUDA graph, whose kernel nodes the
@@ -32,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.engine.engine import EngineRequest, InferenceEngine
+from repro_torch.launch.serve import cut_periods
 from repro_torch.models.model import init_params
 
 
@@ -103,6 +105,7 @@ def _traced(phase: str, fn, steps: int, out: Path) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.1-8b")
+    ap.add_argument("--periods", type=int, default=None)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=5)
@@ -112,6 +115,8 @@ def main(argv=None):
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     cfg = get_config(args.arch)
+    if args.periods is not None:
+        cfg = cut_periods(cfg, args.periods)
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     eng = InferenceEngine(cfg, params, max_batch=args.batch, max_len=4096,
                           device=dev)
@@ -134,7 +139,8 @@ def main(argv=None):
     lines[1].update(graph_replays=eng.graph_replays - replays,
                     capture_s=eng.capture_s)
     for ln in lines:
-        ln.update(batch=args.batch, prompt=args.prompt, arch=args.arch)
+        ln.update(batch=args.batch, prompt=args.prompt, arch=args.arch,
+                  num_layers=cfg.num_layers)
         print(json.dumps(ln), flush=True)
     return lines
 

@@ -8,24 +8,36 @@ load, the same stepping loop feeding ``drain_events()`` into the
 the load counts queued and staged requests as well as running ones (all
 requests are submitted before the first step, so counting running ones
 alone sends every request to engine 0); the engines share one weight set;
-odd-numbered engines use chunked prefill, so one fleet serves through both
-prefill paths.
+odd-numbered engines use chunked prefill where the config allows it (full
+attention only: mamba and MLA layers prefill in one shot), so one fleet
+serves through both prefill paths.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \\
       --n-requests 12 --engines 2                       # full width, CUDA
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-      --size reduced [--arch minicpm-2b]
+      --size reduced [--arch deepseek-v2-lite-16b]
+
+``--arch`` takes every id of ``configs.ALL_ARCHS``: the dense llama3.1-8b,
+qwen2.5-14b, minicpm-2b, qwen3-32b, internvl2-1b and musicgen-medium
+(the last two text-only), mamba2-1.3b, deepseek-v2-lite-16b (MLA over a
+per-slot latent cache, MoE) and jamba-v0.1-52b (mamba, attention, MoE).
+At ``--size full`` one card holds deepseek-v2-lite-16b whole (31.4 GB of
+bf16 weights); qwen3-32b needs ``build_engines(..., max_batch=4)`` and
+jamba-v0.1-52b (102.9 GB) fits only cut to two of its four periods
+(``cut_periods``: 16 of 32 layers, 52.0 GB), a config that
+``build_engines`` takes and the CLI does not build.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs import ALL_ARCHS, get_config, reduce_config
 from repro_torch.core.estimator import EMAEstimator
 from repro_torch.device import resolve_device
 from repro_torch.engine.engine import EngineRequest, InferenceEngine
@@ -38,6 +50,15 @@ SIZES: Dict[str, dict] = {
     "reduced": dict(dtype=torch.float32, max_batch=4, max_len=96,
                     page_size=16, prefill_chunk=8, prompt_len=(8, 24)),
 }
+
+
+def cut_periods(cfg, periods: int):
+    """``cfg`` at full width with its one stage repeated ``periods`` times:
+    depth cut to fit the card (jamba-v0.1-52b at 2 of its 4 periods)."""
+    (stage,) = cfg.stages
+    return dataclasses.replace(
+        cfg, num_layers=len(stage.pattern) * periods,
+        stages=(dataclasses.replace(stage, repeat=periods),))
 
 
 def build_engines(cfg, n_engines: int, size: str, device, seed: int = 0,
@@ -112,7 +133,8 @@ def serve(engines: List[InferenceEngine], requests: List[EngineRequest],
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.1-8b")
+    ap.add_argument("--arch", default="llama3.1-8b",
+                    help=f"one of {', '.join(ALL_ARCHS)}")
     ap.add_argument("--engines", type=int, default=2)
     ap.add_argument("--n-requests", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=12)

@@ -5,9 +5,13 @@ which torch cannot reproduce, so this bridge is how both packages compute
 with the same weights.  The JAX tree holds ``embed``, ``final_norm``,
 ``lm_head``, ``prefix_proj`` (configs with prefix embeddings) and a
 ``stages`` list; each stage maps ``blk{i}`` to that
-pattern slot's ``attn``, ``mixer`` (mamba) and ``ffn`` dicts, whichever the
-layer has, with a leading repeat axis.  Leaves keep their dtype: a bf16
-tree's ``A_log``, ``D`` and ``dt_bias`` stay float32.  The
+pattern slot's ``attn`` (full attention or MLA), ``mixer`` (mamba) and
+``ffn`` (dense or MoE) dicts, whichever the layer has, with a leading
+repeat axis.  A MoE ``ffn`` nests its shared experts' leaves under
+``shared``; the port keeps them flat as ``shared_w_gate`` and so on
+(``layers.SHARED``), since ``nn.ParameterDict`` keys cannot nest.  Leaves
+keep their dtype: a bf16 tree's ``A_log``, ``D``, ``dt_bias`` and MoE
+``router`` stay float32.  The
 caller hands the tree over as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 """
@@ -18,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import frozen
+from repro_torch.models.layers import SHARED, frozen
 from repro_torch.models.model import Block, Model, check_supported
 
 # the tree's top-level leaves, each present or not as the config says
@@ -40,6 +44,23 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _flat(part: dict) -> dict:
+    """One part's leaves with the nested ``shared`` dict flattened."""
+    out = {k: a for k, a in part.items() if k != "shared"}
+    out.update({SHARED + k: a for k, a in part.get("shared", {}).items()})
+    return out
+
+
+def _nested(part: dict) -> dict:
+    """Inverse of :func:`_flat`."""
+    out = {k: a for k, a in part.items() if not k.startswith(SHARED)}
+    shared = {k[len(SHARED):]: a for k, a in part.items()
+              if k.startswith(SHARED)}
+    if shared:
+        out["shared"] = shared
+    return out
+
+
 def from_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> Model:
     """The port's ``Model`` holding the weights of a JAX param tree."""
     dev = resolve_device(device)
@@ -54,7 +75,7 @@ def from_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> Model:
                 leaf = sp[f"blk{pi}"]
                 blocks.append(Block(spec, **{
                     part: frozen({k: _to_tensor(np.asarray(a)[r], dev)
-                                  for k, a in leaf[part].items()})
+                                  for k, a in _flat(leaf[part]).items()})
                     for part in ("attn", "mixer", "ffn") if part in leaf}))
     return Model(cfg, frozen(top), blocks)
 
@@ -71,9 +92,9 @@ def to_numpy_tree(model: Model) -> dict:
         for pi in range(n):
             reps = [blocks[r * n + pi] for r in range(stage.repeat)]
             sp[f"blk{pi}"] = {
-                part: {k: np.stack([_to_numpy(getattr(b, part)[k])
-                                    for b in reps])
-                       for k in getattr(reps[0], part)}
+                part: _nested({k: np.stack([_to_numpy(getattr(b, part)[k])
+                                            for b in reps])
+                               for k in getattr(reps[0], part)})
                 for part in reps[0].parts}
         stages.append(sp)
     out["stages"] = stages

@@ -1,17 +1,24 @@
-"""Layers of the dense GQA decoder: RMSNorm, RoPE, attention, gated FFN.
+"""Layers of the decoder: RMSNorm, RoPE, GQA attention, MLA, gated FFN, MoE.
 
 Counterparts of ``repro/models/layers.py``: ``rms_norm`` (:27-31) with its
 ``(1 + w)`` scale, the half-split ``rope`` (:38-48), ``init_attention`` and
 ``_qkv`` with optional qk_norm (:59-116, without the sharding
 constraints), ``_sdpa`` (:119-132), ``attn_forward`` (:175-183),
-``attn_decode`` (:186-207), ``attn_chunk`` (:210-238), ``init_ffn`` and
-``ffn_forward`` (:363-381).
+``attn_decode`` (:186-207), ``attn_chunk`` (:210-238), ``init_mla``,
+``_mla_q_and_latent``, ``mla_forward`` and ``mla_decode`` (:245-356),
+``init_ffn`` and ``ffn_forward`` (:363-381), ``init_moe``,
+``moe_capacity``, ``_moe_local`` and the plain branch of ``moe_forward``
+(:388-472, :527-535; the ``shard_map`` branch waits for the distributed
+layer).
 
 Attention goes through the kernel wrappers: ``attn_forward`` and
 ``attn_chunk`` through ``flash_attention``, ``attn_decode`` through
 ``paged_attention`` over the engine's paged cache (the JAX layer attends
 over a dense per-slot ring).  ``_sdpa`` stays as the plain reference the
-tests compare the layers against.  Parameters are ``nn.ParameterDict``s
+tests compare the layers against.  MLA and the MoE FFN run no kernel in
+the JAX package and none here: they are plain torch ops, and their decode
+paths read nothing on the host, so the engine's decode graph captures
+them.  Parameters are ``nn.ParameterDict``s
 keyed like the JAX pytree, frozen (no gradients).
 """
 from __future__ import annotations
@@ -193,3 +200,191 @@ def ffn_forward(p, cfg: ModelConfig, x):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     z = _act(cfg.act)(h @ p["w_gate"]) * (h @ p["w_up"])
     return z @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator, dtype):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    std = d ** -0.5
+    return frozen({
+        "ln": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "wq": _normal(gen, (d, H * (m.nope_head_dim + m.rope_head_dim)), std,
+                      dtype),
+        "w_dkv": _normal(gen, (d, m.kv_lora_rank + m.rope_head_dim), std,
+                         dtype),
+        "kv_norm": torch.zeros((m.kv_lora_rank,), dtype=dtype,
+                               device=gen.device),
+        "w_uk": _normal(gen, (m.kv_lora_rank, H * m.nope_head_dim),
+                        m.kv_lora_rank ** -0.5, dtype),
+        "w_uv": _normal(gen, (m.kv_lora_rank, H * m.v_head_dim),
+                        m.kv_lora_rank ** -0.5, dtype),
+        "wo": _normal(gen, (H * m.v_head_dim, d), (H * m.v_head_dim) ** -0.5,
+                      dtype),
+    })
+
+
+def _mla_q_and_latent(p, cfg: ModelConfig, h, positions):
+    m = cfg.mla
+    B, L, _ = h.shape
+    q = (h @ p["wq"]).view(B, L, cfg.num_heads,
+                           m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = (h @ p["w_dkv"]).split([m.kv_lora_rank, m.rope_head_dim],
+                                          dim=-1)
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(p, cfg: ModelConfig, x, positions, chunk: int = 512):
+    """Full-sequence MLA (expanded form) over query chunks of ``chunk``, so
+    the scores take [B, H, chunk, L] at most.  Any L: the last chunk may be
+    short (the JAX layer asserts L % 512 == 0 above 512).  Returns (y,
+    (c_kv [B, L, kv_lora], k_rope [B, L, rope])) for the latent cache."""
+    m = cfg.mla
+    B, L, _ = x.shape
+    H = cfg.num_heads
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q_nope, q_rope, c_kv, k_rope = _mla_q_and_latent(p, cfg, h, positions)
+    k_nope = (c_kv @ p["w_uk"]).view(B, L, H, m.nope_head_dim)
+    v = (c_kv @ p["w_uv"]).view(B, L, H, m.v_head_dim)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    ys = []
+    for q0 in range(0, L, chunk):
+        qn, qr = q_nope[:, q0:q0 + chunk], q_rope[:, q0:q0 + chunk]
+        scores = (torch.einsum("bqhd,bshd->bhqs", qn, k_nope)
+                  + torch.einsum("bqhd,bsd->bhqs", qr, k_rope)
+                  ).float() * scale
+        mask = causal_mask(qn.shape[1], L, offset=q0, device=x.device)
+        scores = scores.masked_fill(~mask[:, None], -1e30)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ys.append(torch.einsum("bhqs,bshd->bqhd", probs, v))
+    y = torch.cat(ys, dim=1).reshape(B, L, H * m.v_head_dim)
+    return y @ p["wo"], (c_kv, k_rope)
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache_ckv, cache_kr, context_lens):
+    """One-token MLA decode with matrix absorption: scores and values in
+    the latent space.  x: [B, 1, d]; cache_ckv [B, S, kv_lora] and
+    cache_kr [B, S, rope] are this layer's rows of every slot (row b is
+    slot b), written in place at the new token's position
+    ``context_lens - 1``; a free row (length 0) writes row 0 of its own
+    slot and attends to it alone.  No host read: the step can be
+    captured in a CUDA graph."""
+    m = cfg.mla
+    B, S = cache_ckv.shape[:2]
+    H = cfg.num_heads
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    pos = (context_lens.long() - 1).clamp_min(0)
+    q_nope, q_rope, c_new, kr_new = _mla_q_and_latent(p, cfg, h, pos[:, None])
+    idx = torch.arange(B, device=x.device) * S + pos
+    cache_ckv.view(B * S, -1)[idx] = c_new[:, 0]
+    cache_kr.view(B * S, -1)[idx] = kr_new[:, 0]
+    w_uk = p["w_uk"].view(m.kv_lora_rank, H, m.nope_head_dim)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    scores = (torch.einsum("bhr,bsr->bhs", q_lat, cache_ckv)
+              + torch.einsum("bhd,bsd->bhs", q_rope[:, 0], cache_kr)
+              ).float() * scale
+    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    scores = scores.masked_fill(~valid[:, None, :], -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bhs,bsr->bhr", probs, cache_ckv)
+    w_uv = p["w_uv"].view(m.kv_lora_rank, H, m.v_head_dim)
+    y = torch.einsum("bhr,rhd->bhd", out_lat, w_uv).reshape(B, 1, -1)
+    return y @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (sort-based capacity dispatch)
+# ---------------------------------------------------------------------------
+
+# the shared expert's leaves, flat in the FFN's ParameterDict (the JAX tree
+# nests them under "shared"; ParameterDict keys cannot nest)
+SHARED = "shared_"
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype):
+    """Router [d, E] float32 in any weight dtype, as JAX keeps it; experts
+    [E, d, ff] / [E, ff, d]; with shared experts, their fused FFN (no
+    ``ln``: it reads the same normed input) under ``shared_*`` keys."""
+    mo = cfg.moe
+    d, E, ff = cfg.d_model, mo.num_experts, mo.d_ff_expert
+    p = {
+        "ln": torch.zeros((d,), dtype=dtype, device=gen.device),
+        "router": _normal(gen, (d, E), d ** -0.5, torch.float32),
+        "w_gate": _normal(gen, (E, d, ff), d ** -0.5, dtype),
+        "w_up": _normal(gen, (E, d, ff), d ** -0.5, dtype),
+        "w_down": _normal(gen, (E, ff, d), ff ** -0.5, dtype),
+    }
+    if mo.num_shared:
+        sh = init_ffn(cfg, gen, dtype, d_ff=mo.d_ff_shared)
+        p.update({SHARED + k: v.data for k, v in sh.items() if k != "ln"})
+    return frozen(p)
+
+
+def moe_capacity(T: int, K: int, E: int, cf: float) -> int:
+    return int(min(T * K, max(-(-T * K * cf // E), 16)))
+
+
+def _moe_local(p, cfg: ModelConfig, xt, act):
+    """Sort + capacity-dispatch MoE over tokens xt [T, d]: the (token,
+    choice) rows sorted stably by expert fill [E, C, d] slots, C =
+    ``moe_capacity``; an expert keeps its first C rows in flat order t·K + k
+    and drops the rest.  Expert products are batched matmuls over the
+    slots.  Every shape follows from T alone and nothing is read on the
+    host, so decode can be captured in a CUDA graph.  Returns (y [T, d],
+    Switch aux loss)."""
+    mo = cfg.moe
+    T, d = xt.shape
+    E, K = mo.num_experts, mo.top_k
+    C = moe_capacity(T, K, E, mo.capacity_factor)
+    M = T * K
+    probs = torch.softmax(xt.float() @ p["router"], dim=-1)        # [T, E]
+    top_p, top_i = torch.topk(probs, K, dim=-1)
+    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    flat_e = top_i.reshape(-1)                                     # [M]
+    order = torch.argsort(flat_e, stable=True)
+    e_sorted = flat_e[order]
+    token_of = order // K
+    # rows per expert: a compare-and-sum into E bins (bincount would read
+    # its input's maximum on the host)
+    hits = flat_e[:, None] == torch.arange(E, device=xt.device)    # [M, E]
+    group_sizes = hits.sum(dim=0)
+    starts = torch.cumsum(group_sizes, dim=0) - group_sizes
+    ar = torch.arange(C, device=xt.device)
+    slot_rows = (starts[:, None] + ar[None, :]).clamp_max(M - 1)
+    slot_valid = ar[None, :] < group_sizes[:, None]
+    xs = xt[token_of]                                              # [M, d]
+    slots = xs[slot_rows.reshape(-1)].view(E, C, d) \
+        * slot_valid[..., None].to(xt.dtype)
+    hidden = act(torch.bmm(slots, p["w_gate"])) * torch.bmm(slots, p["w_up"])
+    out_slots = torch.bmm(hidden, p["w_down"])                     # [E, C, d]
+    pos = torch.arange(M, device=xt.device) - starts[e_sorted]
+    keep = pos < C
+    out_sorted = out_slots[e_sorted, pos.clamp_max(C - 1)] \
+        * keep[:, None].to(out_slots.dtype)
+    out_tk = out_sorted[torch.argsort(order)].view(T, K, d)
+    y = torch.einsum("tkd,tk->td", out_tk, top_p.to(out_tk.dtype))
+    frac_tokens = hits.float().mean(dim=0)
+    aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
+    return y, aux
+
+
+def moe_forward(p, cfg: ModelConfig, x):
+    """x: [B, L, d] -> (y, aux_loss): every token of the batch routed
+    together, plus the shared experts where the config has them."""
+    B, L, d = x.shape
+    act = _act(cfg.act)
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    y, aux = _moe_local(p, cfg, h.reshape(-1, d), act)
+    y = y.view(B, L, d)
+    if SHARED + "w_gate" in p:
+        zs = act(h @ p[SHARED + "w_gate"]) * (h @ p[SHARED + "w_up"])
+        y = y + zs @ p[SHARED + "w_down"]
+    return y, aux

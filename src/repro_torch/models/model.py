@@ -5,27 +5,31 @@ Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
 (:177-184), ``model_forward`` (:187-196), ``logits_fn`` (:205-207),
 ``prefill`` (:210-226),
 ``init_cache(ring=False)`` (:229-270), ``prefill_chunk`` (:273-344) and
-``decode_step`` (:373-438).  Differences:
+``decode_step`` (:373-438), with the blocks of ``_apply_block``
+(:87-122).  Differences:
 
 * layers are a flat ``nn.ModuleList`` in ``cfg.layer_list()`` order, run by
   a Python loop (PyTorch runs eagerly; there is no scan to keep small);
   ``convert.py`` maps them to and from the JAX ``stages`` pytree;
 * ``prefill`` returns each layer's decode state (K/V of an attention layer,
-  which the engine writes into pages; conv tail and SSM state of a mamba
-  layer, which it writes into a state slot) in place of a ring cache;
+  which the engine writes into pages; c_kv and k_rope of an MLA layer,
+  which it writes into a latent-cache slot; conv tail and SSM state of a
+  mamba layer, which it writes into a state slot) in place of a ring
+  cache;
 * ``decode_step`` attends over the paged cache through the paged kernel,
-  writes the new token's K/V into it in place, and updates the mamba
-  states in place, every slot at once (the engine runs it at one fixed
-  shape and, on the card, replays it from a CUDA graph);
+  writes the new token's K/V into it in place, and updates the latent
+  rows and the mamba states in place, every slot at once (the engine runs
+  it at one fixed shape and, on the card, replays it from a CUDA graph);
 * ``prefill_chunk`` takes only real tokens (no padding to a fixed shape)
   and one ``pos`` for the batch.
 
-Layers run ``full`` attention or ``mamba`` mixers, each with a dense FFN or
-none; other mixers and FFNs raise ``NotImplementedError``, as does an
-attention softcap.  Configs with stub-frontend prefix embeddings
-(``n_prefix_embeds``) hold ``prefix_proj``; ``model_forward`` and
-``prefill`` take the embeddings, and the engine serves such configs
-text-only, as the JAX engine does.
+Layers run ``full`` attention, ``mla`` or ``mamba`` mixers, each with a
+dense FFN, a MoE FFN or none; the ``window`` mixer raises
+``NotImplementedError``, as does an attention softcap.  MLA keeps its
+parameters under ``attn``, as the JAX tree does.  Configs with
+stub-frontend prefix embeddings (``n_prefix_embeds``) hold
+``prefix_proj``; ``model_forward`` and ``prefill`` take the embeddings,
+and the engine serves such configs text-only, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -39,32 +43,35 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
 
-MIXERS, FFNS = ("full", "mamba"), ("dense", "none")
+MIXERS, FFNS = ("full", "mla", "mamba"), ("dense", "moe", "none")
+CACHE_OF = {"full": "kv", "mla": "mla", "mamba": "ssm"}
 
 
 def layer_caches(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """Per layer, in ``cfg.layer_list()`` order: the cache that holds its
-    decode state ("kv": K/V pages of an attention layer; "ssm": the conv
-    history and SSM state of a mamba layer) and the layer's rank among the
-    layers of that cache, which indexes the cache's stacked tensors."""
-    ranks = {"kv": 0, "ssm": 0}
+    decode state ("kv": K/V pages of an attention layer; "mla": the latent
+    rows c_kv and k_rope of an MLA layer; "ssm": the conv history and SSM
+    state of a mamba layer) and the layer's rank among the layers of that
+    cache, which indexes the cache's stacked tensors."""
+    ranks = {"kv": 0, "mla": 0, "ssm": 0}
     out = []
     for blk in cfg.layer_list():
-        kind = "ssm" if blk.mixer == "mamba" else "kv"
+        kind = CACHE_OF.get(blk.mixer, "kv")
         out.append((kind, ranks[kind]))
         ranks[kind] += 1
     return out
 
 
 class Block(nn.Module):
-    """One decoder layer: an ``attn`` (full mixer) or ``mixer`` (mamba)
-    parameter dict, and an ``ffn`` dict unless ``spec.ffn == "none"``."""
+    """One decoder layer: an ``attn`` (full or mla mixer) or ``mixer``
+    (mamba) parameter dict, and an ``ffn`` dict (dense or moe) unless
+    ``spec.ffn == "none"``."""
 
     def __init__(self, spec: BlockSpec, attn: Optional[nn.ParameterDict] = None,
                  ffn: Optional[nn.ParameterDict] = None,
                  mixer: Optional[nn.ParameterDict] = None):
         super().__init__()
-        if (attn is None) != (spec.mixer != "full") or \
+        if (attn is None) != (spec.mixer not in ("full", "mla")) or \
                 (mixer is None) != (spec.mixer != "mamba") or \
                 (ffn is None) != (spec.ffn == "none"):
             raise ValueError(f"parameters do not match the layer {spec}")
@@ -142,12 +149,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.n_prefix_embeds:
         top["prefix_proj"] = L._normal(gen, (d, d), d ** -0.5, dtype)
     blocks = []
+    make_attn = {"full": L.init_attention, "mla": L.init_mla}
+    make_ffn = {"dense": L.init_ffn, "moe": L.init_moe}
     for blk in cfg.layer_list():
-        attn = (L.init_attention(cfg, gen, dtype) if blk.mixer == "full"
-                else None)
+        attn = (make_attn[blk.mixer](cfg, gen, dtype)
+                if blk.mixer in make_attn else None)
         mixer = ssd.init_mamba(cfg, gen, dtype) if blk.mixer == "mamba" \
             else None
-        ffn = L.init_ffn(cfg, gen, dtype) if blk.ffn == "dense" else None
+        ffn = (make_ffn[blk.ffn](cfg, gen, dtype) if blk.ffn in make_ffn
+               else None)
         blocks.append(Block(blk, attn, ffn, mixer))
     return Model(cfg, L.frozen(top), blocks)
 
@@ -169,13 +179,23 @@ def logits_fn(model: Model, hidden):
     return hidden @ model.top["lm_head"]
 
 
+def _ffn(blk: Block, cfg: ModelConfig, x):
+    """The layer's FFN output and its aux loss (0 unless MoE)."""
+    if blk.spec.ffn == "moe":
+        return L.moe_forward(blk.ffn, cfg, x)
+    return L.ffn_forward(blk.ffn, cfg, x), 0.0
+
+
 def _run_layers(model: Model, x, positions, collect: bool):
     cfg = model.cfg
     states = []
+    aux = torch.zeros((), device=x.device)
     for blk in model.layers:
-        if blk.attn is not None:
+        if blk.spec.mixer == "full":
             y, st = L.attn_forward(blk.attn, cfg, x, positions,
                                    blk.spec.window)
+        elif blk.spec.mixer == "mla":
+            y, st = L.mla_forward(blk.attn, cfg, x, positions)
         elif collect:
             y, st = ssd.mamba_forward(blk.mixer, cfg, x, return_state=True)
         else:
@@ -184,18 +204,20 @@ def _run_layers(model: Model, x, positions, collect: bool):
         if collect:
             states.append(st)
         if blk.ffn is not None:
-            x = x + L.ffn_forward(blk.ffn, cfg, x)
-    return L.rms_norm(x, model.top["final_norm"], cfg.norm_eps), states
+            y, a = _ffn(blk, cfg, x)
+            x, aux = x + y, aux + a
+    return L.rms_norm(x, model.top["final_norm"], cfg.norm_eps), states, aux
 
 
 def model_forward(model: Model, tokens, prefix_embeds=None):
-    """Teacher-forcing forward.  Returns (final_hidden [B, S, d], aux_loss);
-    aux_loss is 0 for a dense model.  S counts the prefix positions."""
+    """Teacher-forcing forward.  Returns (final_hidden [B, S, d], aux_loss):
+    the MoE layers' Switch losses summed, 0 for a model without MoE.  S
+    counts the prefix positions."""
     x = embed_tokens(model, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x, _ = _run_layers(model, x, positions, collect=False)
-    return x, torch.zeros((), device=x.device)
+    x, _, aux = _run_layers(model, x, positions, collect=False)
+    return x, aux
 
 
 def prefill(model: Model, tokens,
@@ -204,13 +226,15 @@ def prefill(model: Model, tokens,
     given: then S counts the n prefix positions too).  Returns (last-token
     logits [B, V], one decode state per layer): (k, v) of shape
     [B, S, KV, hd] for an
-    attention layer, for the engine to write into pages; (conv tail
-    {"x", "B", "C"} [B, K-1, ·], SSM state [B, H, P, N] f32) for a mamba
-    layer, for the engine to write into a state slot."""
+    attention layer, for the engine to write into pages; (c_kv [B, S,
+    kv_lora], k_rope [B, S, rope]) for an MLA layer, for the engine to
+    write into a latent-cache slot; (conv tail {"x", "B", "C"} [B, K-1, ·],
+    SSM state [B, H, P, N] f32) for a mamba layer, for the engine to write
+    into a state slot."""
     x = embed_tokens(model, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x, states = _run_layers(model, x, positions, collect=True)
+    x, states, _ = _run_layers(model, x, positions, collect=True)
     return logits_fn(model, x[:, -1]), states
 
 
@@ -229,12 +253,13 @@ def prefill_chunk(model: Model, cache: dict, tokens):
     """Extend the staging cache by one prompt chunk ``tokens`` [B, C] (all
     real tokens).  Writes K/V at ``cache["pos"]`` onward in place, advances
     ``pos`` by C and returns (logits at the chunk's last token [B, V],
-    cache)."""
+    cache).  A MoE FFN routes the chunk's tokens alone, as in JAX."""
     cfg = model.cfg
-    if any(blk.attn is None for blk in model.layers):
+    if any(blk.spec.mixer != "full" for blk in model.layers):
         raise NotImplementedError(
-            "prefill_chunk supports full attention only: mamba states are "
-            "not chunk-resumable (the engine prefills them in one shot)")
+            "prefill_chunk supports full attention only: mla and mamba "
+            "states are not chunk-resumable (the engine prefills them in "
+            "one shot)")
     pos0 = cache["pos"]
     B, C = tokens.shape
     if pos0 + C > cache["k"].shape[2]:
@@ -245,7 +270,7 @@ def prefill_chunk(model: Model, cache: dict, tokens):
         x = x + L.attn_chunk(blk.attn, cfg, x, cache["k"][i], cache["v"][i],
                              pos0, blk.spec.window)
         if blk.ffn is not None:
-            x = x + L.ffn_forward(blk.ffn, cfg, x)
+            x = x + _ffn(blk, cfg, x)[0]
     x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
     cache["pos"] = pos0 + C
     return logits_fn(model, x[:, -1]), cache
@@ -261,10 +286,14 @@ def decode_step(model: Model, tokens, cache: dict):
     Attention layers attend over ``k_pages``/``v_pages`` [n kv layers, P,
     page, KV, hd] through ``block_tables`` int32 [B, n_pages] and
     ``context_lens`` int32 [B] (counting the new token), and write the new
-    K/V into the pages.  Mamba layers update ``conv`` {"x", "B", "C":
-    [n ssm layers, B, K-1, ·]} and ``ssm`` [n ssm layers, B, H, P, N] f32
-    in place.  No host read and no host-built tensor: the step can be
-    captured in a CUDA graph.  Returns logits [B, V]."""
+    K/V into the pages.  MLA layers write the new token's latent rows into
+    ``ckv`` [n mla layers, B, S, kv_lora] and ``kr`` [n mla layers, B, S,
+    rope] at ``context_lens - 1`` and attend over them, as
+    ``LatentCache.decode_view`` gives them.  Mamba layers update ``conv``
+    {"x", "B", "C": [n ssm layers, B, K-1, ·]} and ``ssm`` [n ssm layers,
+    B, H, P, N] f32 in place.  MoE layers route the B rows together.  No
+    host read and no host-built tensor: the step can be captured in a
+    CUDA graph.  Returns logits [B, V]."""
     cfg = model.cfg
     x = embed_tokens(model, tokens)[:, None]
     for blk, (kind, i) in zip(model.layers, layer_caches(cfg)):
@@ -272,12 +301,15 @@ def decode_step(model: Model, tokens, cache: dict):
             x = x + L.attn_decode(blk.attn, cfg, x, cache["k_pages"][i],
                                   cache["v_pages"][i], cache["block_tables"],
                                   cache["context_lens"])
+        elif kind == "mla":
+            x = x + L.mla_decode(blk.attn, cfg, x, cache["ckv"][i],
+                                 cache["kr"][i], cache["context_lens"])
         else:
             y, _ = ssd.mamba_decode(
                 blk.mixer, cfg, x, {k: v[i] for k, v in cache["conv"].items()},
                 cache["ssm"][i])
             x = x + y
         if blk.ffn is not None:
-            x = x + L.ffn_forward(blk.ffn, cfg, x)
+            x = x + _ffn(blk, cfg, x)[0]
     x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
     return logits_fn(model, x[:, 0])

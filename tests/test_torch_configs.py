@@ -4,7 +4,11 @@ bridged fp32 weights: minicpm-2b (MHA, tied embeddings), qwen3-32b
 prefix embeddings through ``prefix_proj``.  Logits within 1e-4 (with the
 prefix embeddings where the config has them: their positions shift RoPE
 for every token after them); greedy engine tokens identical one-shot and
-chunked.  Plus the copied stage builder and shape table."""
+chunked.  The MoE configs, deepseek-v2-lite-16b (MLA) and jamba-v0.1-52b
+(mamba, attention): hidden states and ``prefill`` logits within 1e-4, the
+summed aux loss within 1e-5, a MoE layer under chunked prefill, and the
+full-width parameter counts.  Plus the copied stage builder and shape
+table."""
 import dataclasses
 import functools
 
@@ -171,3 +175,72 @@ def test_shapes_and_block_kinds_match_jax():
         assert [(si, pi, dataclasses.astuple(b))
                 for si, pi, b in t.block_kinds()] == \
             [(si, pi, dataclasses.astuple(b)) for si, pi, b in j.block_kinds()]
+
+
+MOE_ARCHS = ["deepseek-v2-lite-16b", "jamba-v0.1-52b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_configs_forward_prefill_and_aux_match_jax(arch):
+    jcfg, tcfg, params, model = _bridge(arch)
+    toks, _ = _inputs(tcfg, 13, S=23)
+    jh, jaux = JM.model_forward(params, jcfg, jnp.asarray(toks, jnp.int32),
+                                remat=False)
+    th, taux = TM.model_forward(model, torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(th), _np(jh), **TOL)
+    n_moe = sum(b.ffn == "moe" for b in tcfg.layer_list())
+    assert n_moe == (2 if arch.startswith("deepseek") else 8)
+    assert float(taux) > 0.5 * n_moe          # each Switch loss is >= 1
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    jl, _ = JM.prefill(params, jcfg, jnp.asarray(toks, jnp.int32), max_len=64)
+    tl, states = TM.prefill(model, torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    kinds = [k for k, _ in TM.layer_caches(tcfg)]
+    for kind, st in zip(kinds, states):
+        if kind == "mla":
+            assert tuple(st[0].shape) == (2, 23, tcfg.mla.kv_lora_rank)
+
+
+def test_prefill_chunk_runs_the_moe_ffn_on_each_chunk():
+    """Full attention with a MoE FFN (jamba's attention layer alone, two
+    deep): chunks of 9 and 8 real tokens, logits as JAX's chunk by chunk."""
+    def attn_moe(cfg, base):
+        return dataclasses.replace(cfg, name="attn-moe", num_layers=2,
+                                   stages=(base.Stage(pattern=(
+                                       base.BlockSpec("full", "moe"),),
+                                       repeat=2),))
+    jcfg = attn_moe(jax_reduce(jax_get_config("jamba-v0.1-52b")), jax_base)
+    tcfg = attn_moe(reduce_config(get_config("jamba-v0.1-52b")), port_base)
+    params = JM.init_params(jcfg, jax.random.PRNGKey(6), dtype=jnp.float32)
+    model = from_jax_params(jax.tree.map(np.asarray, params), tcfg,
+                            device="cpu")
+    toks = np.random.default_rng(8).integers(0, tcfg.vocab_size, (1, 17))
+    jcache = JM.init_cache(jcfg, 1, 32, dtype=jnp.float32, ring=False)
+    tcache = TM.init_cache(tcfg, 1, 32, dtype=torch.float32, device="cpu")
+    for a, b in ((0, 9), (9, 17)):
+        jl, jcache = JM.prefill_chunk(params, jcfg, jcache,
+                                      jnp.asarray(toks[:, a:b], jnp.int32))
+        tl, tcache = TM.prefill_chunk(model, tcache,
+                                      torch.from_numpy(toks[:, a:b]))
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    assert tcache["pos"] == 17
+    whole, _ = TM.prefill(model, torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(tl), _np(whole), **TOL)
+
+
+def test_full_width_moe_parameter_counts():
+    """deepseek-v2-lite-16b whole (31.4 GB in bf16) and jamba-v0.1-52b at
+    two of its four periods (52.0 GB), the depth one card serves."""
+    ds = get_config("deepseek-v2-lite-16b")
+    assert ds.param_count() == 15_706_482_176 == \
+        jax_get_config("deepseek-v2-lite-16b").param_count()
+    jamba, jj = get_config("jamba-v0.1-52b"), jax_get_config("jamba-v0.1-52b")
+    assert jamba.param_count() == 51_459_766_272 == jj.param_count()
+    from repro_torch.launch.serve import cut_periods
+    two = cut_periods(jamba, 2)
+    assert two.num_layers == 16 and two.stages[0].repeat == 2
+    assert two.param_count() == 25_998_318_592 == dataclasses.replace(
+        jj, num_layers=16, stages=(dataclasses.replace(jj.stages[0],
+                                                       repeat=2),)
+    ).param_count()
+    assert sum(b.mixer == "full" for b in two.layer_list()) == 2

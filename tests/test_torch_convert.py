@@ -1,5 +1,7 @@
-"""The weight bridge round-trips the JAX parameter tree leaf by leaf, and
-the port's config copies match the JAX package's field by field."""
+"""The weight bridge round-trips the JAX parameter tree leaf by leaf (MLA's
+``attn`` dicts and MoE ``ffn`` dicts with their nested ``shared`` experts
+too), and the port's config copies match the JAX package's field by
+field."""
 import dataclasses
 
 import numpy as np
@@ -16,7 +18,8 @@ from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.models.convert import from_jax_params, to_numpy_tree  # noqa: E402
 
 ARCHS = ["llama3.1-8b", "qwen2.5-14b", "mamba2-1.3b", "minicpm-2b", "qwen3-32b",
-         "internvl2-1b", "musicgen-medium"]
+         "internvl2-1b", "musicgen-medium", "deepseek-v2-lite-16b",
+         "jamba-v0.1-52b"]
 
 
 def _leaves(tree, prefix=""):
@@ -38,7 +41,10 @@ def test_from_jax_then_to_numpy_is_identity(arch, dtype):
     params = jax.tree.map(np.asarray,
                           jax_init_params(jcfg, jax.random.PRNGKey(1), dtype))
     model = from_jax_params(params, tcfg, device="cpu")
-    assert len(model.layers) == tcfg.num_layers == 2
+    # two layers per stage: 2 for the one-layer patterns, deepseek's dense
+    # first stage of 1 then 2 MoE layers, jamba's period of 8 twice
+    assert len(model.layers) == tcfg.num_layers == sum(
+        len(st.pattern) * min(st.repeat, 2) for st in get_config(arch).stages)
     want = dict(_leaves(params))
     got = dict(_leaves(to_numpy_tree(model)))
     assert sorted(got) == sorted(want)
@@ -49,6 +55,9 @@ def test_from_jax_then_to_numpy_is_identity(arch, dtype):
                                       err_msg=path)
     if dtype == jnp.bfloat16:
         assert model.dtype == torch.bfloat16
+        for blk in model.layers:
+            if blk.spec.ffn == "moe":
+                assert blk.ffn["router"].dtype == torch.float32
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -63,3 +72,24 @@ def test_config_copies_match_jax(arch, reduced):
     for active_only in (False, True):
         assert tcfg.param_count(active_only=active_only) == \
             jcfg.param_count(active_only=active_only)
+
+
+def test_moe_shared_experts_flatten_and_nest_again():
+    """A MoE ``ffn`` holds its shared experts flat (``shared_w_gate``, ...);
+    the tree that comes back nests them under ``shared`` again."""
+    jcfg = jax_reduce(jax_get_config("deepseek-v2-lite-16b"))
+    tcfg = reduce_config(get_config("deepseek-v2-lite-16b"))
+    params = jax.tree.map(np.asarray, jax_init_params(
+        jcfg, jax.random.PRNGKey(2), jnp.float32))
+    model = from_jax_params(params, tcfg, device="cpu")
+    ffn = model.layers[1].ffn
+    assert sorted(ffn) == ["ln", "router", "shared_w_down", "shared_w_gate",
+                           "shared_w_up", "w_down", "w_gate", "w_up"]
+    assert "shared" not in model.layers[0].ffn       # layer 0: dense FFN
+    back = to_numpy_tree(model)["stages"][1]["blk0"]["ffn"]
+    assert sorted(back["shared"]) == ["w_down", "w_gate", "w_up"]
+    np.testing.assert_array_equal(
+        back["shared"]["w_up"], params["stages"][1]["blk0"]["ffn"]["shared"]
+        ["w_up"])
+    assert sorted(model.layers[0].attn) == ["kv_norm", "ln", "w_dkv",
+                                            "w_uk", "w_uv", "wo", "wq"]

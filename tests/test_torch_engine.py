@@ -1,7 +1,11 @@
 """The port's serving engine against the JAX engine on bridged weights:
 greedy tokens must be identical one-shot and chunked, across a checkpoint
-round trip; plus the paged allocator, the bounded events ring, and the
-CPU run of the serving launcher."""
+round trip, and for reduced deepseek-v2-lite-16b (MLA, MoE, the latent
+cache) and jamba-v0.1-52b (mamba, attention, MoE) batched and staggered;
+plus the paged allocator, the bounded events ring, and the CPU run of the
+serving launcher."""
+import functools
+
 import numpy as np
 import pytest
 
@@ -249,3 +253,106 @@ def test_profile_summary_counts_plain_port_kernels():
                                          "ssd_state_pass_kernel"]
     assert s["port_kernels"]["ssd_scan_mma_kernel"]["ms_per_step"] == \
         pytest.approx(0.012)
+
+
+# -- MLA and MoE: reduced deepseek-v2-lite-16b and jamba-v0.1-52b ------------
+
+MOE_ARCHS = ["deepseek-v2-lite-16b", "jamba-v0.1-52b"]
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_bridged(arch):
+    """Reduced ``arch`` at two layers per stage (deepseek: 3 MLA layers,
+    the first dense; jamba: two periods of 8, 14 mamba + 2 attention
+    layers, MoE on odd ones), fp32 weights bridged from ``jax.random``."""
+    jcfg = jax_reduce(jax_get_config(arch), layers_per_stage=2)
+    tcfg = reduce_config(get_config(arch), layers_per_stage=2)
+    params = jax_init_params(jcfg, jax.random.PRNGKey(9), dtype=jnp.float32)
+    model = from_jax_params(jax.tree.map(np.asarray, params), tcfg,
+                            device="cpu")
+    return jcfg, tcfg, params, model
+
+
+def _moe_schedule(case):
+    """(engine step at which it arrives, rid, prompt, max_new_tokens).
+    ``batched``: five requests at once over three slots.  ``staggered``:
+    six in four waves over four slots, rows finishing at different steps
+    and free rows in every step."""
+    rng = np.random.default_rng(11)
+    if case == "batched":
+        return [(0, rid, [int(t) for t in rng.integers(1, 256, 8 + rid)], 6)
+                for rid in range(5)]
+    return [(w, rid, [int(t) for t in rng.integers(1, 256, n)], m)
+            for rid, (w, n, m) in enumerate(zip(
+                (0, 0, 2, 5, 5, 9), (13, 6, 17, 9, 21, 11),
+                (3, 7, 2, 6, 4, 5)))]
+
+
+def _run_schedule(eng, req_cls, schedule):
+    for t in range(max(w for w, *_ in schedule) + 1):
+        for w, rid, prompt, m in schedule:
+            if w == t:
+                eng.submit(req_cls(rid=rid, tokens=list(prompt),
+                                   prompt_len=len(prompt), max_new_tokens=m))
+        eng.step()
+    eng.run_until_drained()
+    return {r.rid: r.generated for r in eng.completed}
+
+
+MOE_SLOTS = {"batched": 3, "staggered": 4}
+
+
+@pytest.fixture(scope="module")
+def jax_moe_tokens():
+    """The JAX engine's greedy tokens per (arch, case), each run once for
+    the module."""
+    @functools.lru_cache(maxsize=None)
+    def run(arch, case):
+        jcfg, _, params, _ = _moe_bridged(arch)
+        return _run_schedule(JEngine(jcfg, params, max_batch=MOE_SLOTS[case],
+                                     max_len=64), JReq, _moe_schedule(case))
+    return run
+
+
+@pytest.mark.parametrize("case", sorted(MOE_SLOTS))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_mla_and_moe_engines_match_jax_engine(arch, case, jax_moe_tokens):
+    """Greedy tokens equal to the JAX engine's, batched and staggered with
+    free rows; chunking asked for and gated off (mla, mamba)."""
+    _, tcfg, _, model = _moe_bridged(arch)
+    schedule = _moe_schedule(case)
+    eng = InferenceEngine(tcfg, model, max_batch=MOE_SLOTS[case], max_len=64,
+                          prefill_chunk=8, page_size=4, device="cpu")
+    assert eng.prefill_chunk is None
+    got = _run_schedule(eng, EngineRequest, schedule)
+    assert got == jax_moe_tokens(arch, case)
+    assert [len(got[rid]) for _, rid, _, _ in schedule] == \
+        [m for *_, m in schedule]
+    assert eng.slots == [None] * eng.max_batch
+    decodes = [n for kind, n, _ in eng.drain_events() if kind == "decode"]
+    assert max(decodes) <= eng.max_batch and min(decodes) < eng.max_batch
+    if arch.startswith("deepseek"):
+        assert eng.cache is None and eng.states is None
+        assert tuple(eng.latent.ckv.shape[:3]) == (3, eng.max_batch, 64)
+    else:
+        assert eng.latent is None
+        assert eng.cache.n_attn_layers == 2 and eng.states.ssm.shape[0] == 14
+        assert eng.cache.utilization() == 0.0
+
+
+def test_latent_engine_packs_each_rows_length():
+    """Without a paged cache the step's buffer still carries the context
+    lengths: each live row's tokens (counting the one it decodes), 0 in a
+    free row."""
+    _, tcfg, _, model = _moe_bridged("deepseek-v2-lite-16b")
+    eng = InferenceEngine(tcfg, model, max_batch=3, max_len=32, device="cpu")
+    assert eng._dev.numel() == 2 * 3
+    eng.submit(EngineRequest(rid=0, tokens=list(range(1, 8)), prompt_len=7,
+                             max_new_tokens=4))
+    eng.step()
+    assert eng._view["context_lens"].tolist() == [8, 0, 0]
+    assert eng._view["ckv"] is eng.latent.ckv
+    eng.step()
+    assert eng._view["context_lens"].tolist() == [9, 0, 0]
+    # the free rows wrote nothing but their own row 0
+    assert not eng.latent.ckv[:, 1:, 1:].any()

@@ -145,4 +145,4 @@ def test_unported_mixers_raise():
     with pytest.raises(NotImplementedError):
         TM.init_params(win, device="cpu")
     with pytest.raises(KeyError, match="supported"):
-        get_config("jamba-v0.1-52b")
+        get_config("mixtral-8x22b")
