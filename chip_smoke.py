@@ -28,15 +28,16 @@ JAX.  Phases, each printing one JSON line:
    each call reads cold K/V as each layer of a decode step does
    (``ms_warm_l2`` repeats one pool); the library call is timed the same
    way.  It also runs small untimed shapes (``PAGED_BRANCHES``: groupings
-   1, 4, 5, 7 and 8, head dims 64 and 128, pages of 8, 16 and 32, fp32
-   and bf16, ctx 0, 1, one page, one token either side of a split
+   1, 2, 4, 5, 7 and 8, head dims 64, 128 and 256, pages of 8, 16 and 32,
+   fp32 and bf16, ctx 0, 1, one page, one token either side of a split
    boundary, a table within one split, B=1 over many splits).  Their
    padded table entries point at a page that no row names, and every such
    page, and every slot past ctx, holds NaN: a kernel that read one would
    fail.  Flash attention also runs small untimed shapes that reach every
    branch of its two CUDA kernels (``FLASH_BRANCHES``: head dims,
    groupings, ragged edges, window, softcap, non-causal, a k/v prefix of
-   a longer buffer, and one shape each routed to the fp32 FMA kernel).
+   a longer buffer, and shapes routed to the fp32 FMA kernel: fp32, bf16
+   at hd 32, and hd 256 in both types, with a window and a prefix).
    SSD: both input types are computed in fp32 by the kernel and the plain
    version alike (bf16 products on the tensor cores with each fp32
    operand split into two bf16 parts), so both are held to 1e-4 of the
@@ -57,20 +58,26 @@ JAX.  Phases, each printing one JSON line:
    context cost what ``ms`` less ``ms_cut`` shows).  Last, timed bf16 rows
    at the other served models' shapes (``MODEL_ROWS``, ``kernel_model``
    lines): paged decode at qwen3-32b's (B=4, H=64 over KV=8, hd 128),
-   minicpm-2b's (B=8, H=36 over KV=36, hd 64: one query row per KV head)
-   and internvl2-1b's (B=8, H=14 over KV=2, hd 64: seven) with every row
-   at ctx 1025 over the engine's 4096-slot table, and flash attention at
-   minicpm-2b's prefill (Lq=Lk=2000, H=36 over KV=36, hd 64), and the SSD
-   scan at jamba-v0.1-52b's prefill (B=1, L=2048, H=128 heads of P=64,
-   one group of N=16, chunk 256; ``SSD_BRANCHES`` holds an untimed
-   P=64, N=16 shape too);
+   minicpm-2b's (B=8, H=36 over KV=36, hd 64: one query row per KV head),
+   internvl2-1b's (B=8, H=14 over KV=2, hd 64: seven) and gemma3-12b's
+   (B=8, H=16 over KV=8, hd 256) with every row at ctx 1025 over the
+   engine's 4096-slot table, and at a gemma3-27b window layer's (B=8,
+   H=32 over KV=16, hd 128, ctx 1024 over its full 64-page ring, the
+   identity table), flash attention at minicpm-2b's prefill (Lq=Lk=2000,
+   H=36 over KV=36, hd 64), at a gemma3-27b window layer's (H=32 over
+   KV=16, hd 128, window 1024) and at gemma3-12b's (H=16 over KV=8, hd
+   256, the FMA kernel), and the SSD scan at jamba-v0.1-52b's prefill
+   (B=1, L=2048, H=128 heads of P=64, one group of N=16, chunk 256;
+   ``SSD_BRANCHES`` holds an untimed P=64, N=16 shape too);
 3. reduced: reduced llama3.1-8b, mamba2-1.3b, a hybrid (a mamba layer,
    then full attention), minicpm-2b, qwen3-32b (qk_norm), internvl2-1b,
    musicgen-medium, deepseek-v2-lite-16b (MLA and MoE: no kernel, the
-   latent cache) and jamba-v0.1-52b (two periods: mamba, attention and
-   MoE in one decode graph) in fp32, each served on the kernel path and
-   on the
-   CPU plain path with the same weights, in three cases: batched,
+   latent cache), jamba-v0.1-52b (two periods: mamba, attention and
+   MoE in one decode graph), gemma3-27b and gemma3-12b (window layers
+   over per-slot rings beside a full layer over pages, window 16) and
+   mixtral-8x22b (window layers and MoE, no paged cache) in fp32, each
+   served on the kernel path and on the CPU plain path with the same
+   weights, in three cases: batched,
    chunked, and staggered (rows finishing at different steps, pages
    handed out again): greedy tokens must match, and every decode step of
    every card engine must be a replay of its CUDA graph.  For the two
@@ -78,22 +85,26 @@ JAX.  Phases, each printing one JSON line:
    pass's hidden states with random prefix embeddings must agree within
    1e-4 (the engine serves them text-only);
 4. serve: full-width llama3.1-8b, mamba2-1.3b, qwen3-32b, minicpm-2b,
-   deepseek-v2-lite-16b (whole: 27 layers, 15.7 B parameters) and
+   deepseek-v2-lite-16b (whole: 27 layers, 15.7 B parameters),
    jamba-v0.1-52b at two of its four periods (16 of 32 layers, 26.0 B
-   parameters; the line's ``cut``), in bf16 (random weights from a seed),
-   each on two engines sharing one weight set, 12 requests through the
-   EMA-routed launcher; each model's memory is freed before the next is
-   built.  qwen3-32b's engines hold 4 slots each, not 8: its 65.5 GB of
-   weights leave no room for 8 slots of 4096 tokens twice (the line's
-   ``cut``).  The full-attention models' odd engine prefills in chunks;
-   the models with mamba or MLA layers prefill in one shot on both.
-   Every request must finish, and every prefill and decode layer must
-   have launched its kernel, exactly: flash and paged once per attention
-   layer per prefill call and decode step, ssd once per mamba layer per
-   prefill call (deepseek: none).  The launch counts are set to 0 just
-   before each model's run and read just after it (the engines, built
-   before, capture their decode graphs without counting; each replay
-   counts the launches its capture recorded).  Each engine's decode steps
+   parameters; the line's ``cut``), gemma3-27b (whole: 62 layers, 27.0 B
+   parameters, 52 window layers over 1024-row rings), gemma3-12b (whole:
+   48 layers, hd 256) and mixtral-8x22b at 8 of its 56 layers (20.4 B
+   parameters, window 4096, MoE; ``cut``), in bf16 (random weights from
+   a seed), each on two engines sharing one weight set, 12 requests
+   through the EMA-routed launcher; each model's memory is freed before
+   the next is built.  qwen3-32b's engines hold 4 slots each, not 8: its
+   65.5 GB of weights leave no room for 8 slots of 4096 tokens twice (the
+   line's ``cut``).  The full- and window-attention models' odd engine prefills
+   in chunks; the models with mamba or MLA layers prefill in one shot on
+   both.  Every request must finish, and every prefill and decode layer
+   must have launched its kernel, exactly: flash and paged once per
+   attention layer (full or window) per prefill call and decode step,
+   ssd once per mamba layer per prefill call (deepseek: none).  The
+   launch counts are set to 0 just before each model's run and read just
+   after it (the engines, built before, capture their decode graphs
+   without counting; each replay counts the launches its capture
+   recorded).  Each engine's decode steps
    must all be graph replays; the ``decode_graph`` line gives each
    engine's capture seconds beside TPOT, decode tokens/s and peak memory
    (the ``serve`` line puts the card's ``nvidia-smi`` line beside it, and
@@ -133,7 +144,8 @@ JAX.  Phases, each printing one JSON line:
    its what-if replay.  Every request of each run must be finished, shed,
    throttled, cascaded or lost.
 
-Then the ``kernels`` line (``launches``: the count from the phase-4 run of
+Then the ``kernels`` line (``smoke_s``: the run's seconds so far, the
+build included; ``launches``: the count from the phase-4 run of
 llama3.1-8b or mamba2-1.3b, whichever runs each kernel; ``launches_by_path``:
 each path's count, every phase-4 model's and the phase-5 profile's;
 ``at_model_rows``: the kernel's timed rows at the other served models'
@@ -289,7 +301,8 @@ def paged_case(B: int, dtype_name: str, seed: int):
 
 
 def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
-                     H: int = 32, KV: int = 8, hd: int = 128):
+                     H: int = 32, KV: int = 8, hd: int = 128,
+                     ring: bool = False):
     """bf16 paged decode with every row at context ``ctx`` (llama3.1-8b's
     attention shape unless H, KV, hd say another model's), over block
     tables of ``width`` token slots (the engine's fixed width at
@@ -297,7 +310,10 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
     and over the same tables cut to the context's pages.  The kernel picks
     its splits from the table width, so the full-width call runs splits
     that lie wholly past ctx; both are timed from a graph, with the same
-    bound.  A last page holds ctx % page live slots; the rest are NaN."""
+    bound.  A last page holds ctx % page live slots; the rest are NaN.
+    With ``ring``, the table is a window layer's: row b names pages b * n
+    .. b * n + n - 1 in order (``WindowCache``'s identity table), and ctx
+    is min(context, ring size)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import (paged_attention,
@@ -312,8 +328,9 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
     kp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
     vp = torch.randn((P, page, KV, hd), generator=g, device="cuda").to(dt)
     full = torch.full((B, n_pages), P - 1, dtype=torch.int32, device="cuda")
-    full[:, :used] = torch.randperm(P - 1, generator=g, device="cuda").view(
-        B, used).to(torch.int32)
+    order = (torch.arange(P - 1, device="cuda") if ring else
+             torch.randperm(P - 1, generator=g, device="cuda"))
+    full[:, :used] = order.view(B, used).to(torch.int32)
     cut = full[:, :used].contiguous()
     lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
     ref = paged_attention_ref(q, kp, vp, cut, lens)
@@ -337,7 +354,8 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
     sm = sm_count(q.device)
     return {
         "B": B, "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16", "ctx": ctx,
-        "ctx_sum": B * ctx, "table_tokens": {"full": width, "cut": S},
+        "ring": ring, "ctx_sum": B * ctx,
+        "table_tokens": {"full": width, "cut": S},
         "splits": {"full": partition(B, KV, n_pages, page, sm),
                    "cut": partition(B, KV, used, page, sm)},
         "max_abs_err": max(max_err(out_full, ref), max_err(out_cut, ref)),
@@ -367,6 +385,10 @@ PAGED_BRANCHES = [
     (1, 10, 2, 64, 8, 64, "float32", ["split-1"]),
     (2, 56, 8, 128, 16, 40, "float32", ["split+1", 16]),
     (3, 36, 36, 64, 16, 80, "bfloat16", [0, "split+1", 1025]),  # G = 1, hd 64
+    (3, 16, 8, 256, 16, 80, "bfloat16", [0, "split+1", 1025]),  # hd 256, G = 2
+    (2, 16, 8, 256, 16, 64, "float32", ["split-1", 1]),        # hd 256 fp32
+    (2, 8, 8, 256, 32, 20, "bfloat16", [640, 33]),             # hd 256, G = 1
+    (1, 64, 8, 256, 16, 256, "float32", [4000]),        # hd 256, G = 8, B = 1
 ]
 
 # bf16 rows at the decode and prefill shapes of the other served models,
@@ -377,8 +399,18 @@ MODEL_ROWS = [
     ("paged_attention", "qwen3-32b", dict(B=4, H=64, KV=8, hd=128, ctx=1025)),
     ("paged_attention", "minicpm-2b", dict(B=8, H=36, KV=36, hd=64, ctx=1025)),
     ("paged_attention", "internvl2-1b", dict(B=8, H=14, KV=2, hd=64, ctx=1025)),
+    # a gemma3-27b window layer: its 64-page ring (1024 rows), full
+    ("paged_attention", "gemma3-27b window", dict(B=8, H=32, KV=16, hd=128,
+                                                  ctx=1024, width=1024,
+                                                  ring=True)),
+    ("paged_attention", "gemma3-12b", dict(B=8, H=16, KV=8, hd=256, ctx=1025)),
     ("flash_attention", "minicpm-2b", dict(Lq=2000, Lk=2000, H=36, KV=36,
                                            hd=64)),
+    ("flash_attention", "gemma3-27b window", dict(Lq=2000, Lk=2000, H=32,
+                                                  KV=16, hd=128,
+                                                  window=1024)),
+    ("flash_attention", "gemma3-12b", dict(Lq=2000, Lk=2000, H=16, KV=8,
+                                           hd=256)),
     ("ssd", "jamba-v0.1-52b", dict(L=2048, H=128, P=64, G=1, N=16)),
 ]
 
@@ -453,13 +485,14 @@ def _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len=None):
 
 
 def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
-               KV: int = 8, hd: int = 128):
+               KV: int = 8, hd: int = 128, window=None):
     """llama3.1-8b's prefill attention (H=32 over KV=8, hd=128, unless H,
-    KV, hd say another model's), timed.
-    ``library_ms`` is SDPA with ``is_causal=True`` and no mask where Lq = Lk,
-    so that PyTorch may take its flash backend; ``is_causal`` aligns
-    top-left, so the chunk shape (Lq < Lk) keeps the explicit bottom-right
-    mask.  ``library_masked_ms`` is the masked call at every shape."""
+    KV, hd say another model's; ``window`` for a window layer), timed.
+    ``library_ms`` is SDPA with ``is_causal=True`` and no mask where Lq = Lk
+    and there is no window, so that PyTorch may take its flash backend;
+    ``is_causal`` aligns top-left and knows no window, so the chunk shape
+    (Lq < Lk) and a window keep the explicit mask.  ``library_masked_ms``
+    is the masked call at every shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (cuda_kernel,
@@ -467,12 +500,14 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B = 1
     q, k, v = _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed)
-    out = flash_attention(q, k, v, causal=True)
-    ref = attention_ref(q, k, v, causal=True)
+    out = flash_attention(q, k, v, causal=True, window=window)
+    ref = attention_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     err = max_err(out, ref)
     off = Lk - Lq
-    pairs = sum(min(Lk, i + off + 1) for i in range(Lq))   # causal (q, k)
+    # (q, k) pairs under the causal mask and the window
+    pairs = sum(min(Lk, i + off + 1) - max(0, i + off + 1 - (window or Lk))
+                for i in range(Lq))
     es = q.element_size()
     nbytes = es * (2 * B * Lq * H * hd + 2 * B * Lk * KV * hd)
     b_ms, b_by = bound(nbytes, 4.0 * B * H * hd * pairs, dtype_name)
@@ -480,17 +515,22 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
     kh = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
     vh = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
     qi = torch.arange(Lq, device="cuda")[:, None] + off
-    mask = torch.arange(Lk, device="cuda")[None] <= qi
+    ki = torch.arange(Lk, device="cuda")[None]
+    mask = ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
     masked_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask))
-    library_ms = masked_ms if Lq != Lk else time_ms(
+    library_ms = masked_ms if Lq != Lk or window is not None else time_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
     return {
         "Lq": Lq, "Lk": Lk, "H": H, "KV": KV, "hd": hd, "dtype": dtype_name,
+        "window": window, "pairs": pairs,
         "route": cuda_kernel(q.dtype, hd), "max_abs_err": err,
-        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
-        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True),
-                            iters=3),
+        "ms": time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                              window=window)),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                  window=window), iters=3),
         "library_ms": library_ms, "library_masked_ms": masked_ms,
         "bound_ms": b_ms, "bound_by": b_by,
     }
@@ -513,6 +553,11 @@ FLASH_BRANCHES = [
     (2, 200, 450, 8, 2, 64, "bfloat16", {}, 600),             # prefix
     (2, 77, 333, 8, 2, 128, "float32", {}, 700),              # fma: fp32
     (1, 256, 256, 4, 2, 32, "bfloat16", {}, None),            # fma: hd 32
+    (1, 300, 300, 16, 8, 256, "bfloat16", {}, None),          # fma: hd 256
+    (1, 300, 300, 8, 8, 256, "bfloat16", {"window": 64}, None),
+    (2, 77, 333, 16, 8, 256, "float32", {"window": 100}, 700),  # hd 256
+    (2, 130, 130, 16, 8, 256, "bfloat16", {}, 200),           # hd 256, prefix
+    (1, 300, 300, 32, 16, 128, "bfloat16", {"window": 128}, None),  # gemma3
 ]
 
 
@@ -733,7 +778,8 @@ def check_kernels():
 
 REDUCED_ARCHS = ("llama3.1-8b", "mamba2-1.3b", "hybrid", "minicpm-2b",
                  "qwen3-32b", "internvl2-1b", "musicgen-medium",
-                 "deepseek-v2-lite-16b", "jamba-v0.1-52b")
+                 "deepseek-v2-lite-16b", "jamba-v0.1-52b", "gemma3-27b",
+                 "gemma3-12b", "mixtral-8x22b")
 
 
 def wrappers():
@@ -745,21 +791,24 @@ def wrappers():
 def path_kernels(cfg):
     """The kernels the serving path of ``cfg`` launches (MLA runs none)."""
     from repro_torch.models.model import layer_caches
-    by_cache = {"kv": {"flash_attention", "paged_attention"}, "ssm": {"ssd"},
-                "mla": set()}
+    attn = {"flash_attention", "paged_attention"}
+    by_cache = {"kv": attn, "win": attn, "ssm": {"ssd"}, "mla": set()}
     return set().union(*(by_cache[kind] for kind, _ in layer_caches(cfg)))
 
 
 def layer_counts(cfg) -> dict:
-    """{cache kind: the layers that use it}: "kv" attention, "mla", "ssm"."""
+    """{cache kind: the layers that use it}: "kv" full attention, "win"
+    window attention (a per-slot ring), "mla", "ssm"."""
     from repro_torch.models.model import layer_caches
     kinds = [kind for kind, _ in layer_caches(cfg)]
-    return {k: kinds.count(k) for k in ("kv", "mla", "ssm")}
+    return {k: kinds.count(k) for k in ("kv", "win", "mla", "ssm")}
 
 
 def reduced_config(arch: str):
     """Reduced ``arch`` at two layers per stage (deepseek-v2-lite-16b: 3
-    MLA layers; jamba-v0.1-52b: 16, two periods); ``hybrid`` is reduced
+    MLA layers; jamba-v0.1-52b: 16, two periods; gemma3-27b: 14, two 5:1
+    periods and two window layers; gemma3-12b: 12; mixtral-8x22b: 2 window
+    layers with MoE; window 16, so rings wrap); ``hybrid`` is reduced
     mamba2-1.3b cut to a mamba layer and a full-attention layer with a dense
     FFN, so one decode graph holds both caches."""
     import dataclasses
@@ -862,10 +911,14 @@ def check_reduced(arch: str):
 # (arch, slots per engine or None for the size's 8, periods of the stage or
 # None for all): qwen3-32b's 65.5 GB of bf16 weights leave room for 2 x 4
 # slots of 4096 tokens (8.6 GB of KV); jamba-v0.1-52b's four periods are
-# 102.9 GB, two (16 of 32 layers) 52.0 GB
+# 102.9 GB, two (16 of 32 layers) 52.0 GB; gemma3-27b (54.0 GB) holds 8
+# slots per engine because its 52 window layers keep 1024-row rings;
+# mixtral-8x22b's 56 one-layer periods are 281.3 GB, 8 of them 40.9 GB
 SERVED = (("llama3.1-8b", None, None), ("mamba2-1.3b", None, None),
           ("qwen3-32b", 4, None), ("minicpm-2b", None, None),
-          ("deepseek-v2-lite-16b", None, None), ("jamba-v0.1-52b", None, 2))
+          ("deepseek-v2-lite-16b", None, None), ("jamba-v0.1-52b", None, 2),
+          ("gemma3-27b", None, None), ("gemma3-12b", None, None),
+          ("mixtral-8x22b", None, 8))
 
 
 def served_config(arch: str, periods=None):
@@ -904,9 +957,10 @@ def serve_full_width(arch: str, card: str, max_batch=None, periods=None):
     events = [ev for evs in report["events"] for ev in evs]
     prefills = [dt for kind, _, dt in events if kind == "prefill"]
     decodes = [(n, dt) for kind, n, dt in events if kind == "decode"]
-    # one flash or ssd launch per attention or mamba layer per one-shot
-    # prefill or prefill chunk, one paged launch per attention layer per
-    # decode step
+    # one flash or ssd launch per attention (full or window) or mamba layer
+    # per one-shot prefill or prefill chunk, one paged launch per attention
+    # layer per decode step (full layers over pages, window layers over
+    # their rings)
     prefill_calls = sum(
         1 if e.prefill_chunk is None else math.ceil(r.prompt_len
                                                     / e.prefill_chunk)
@@ -964,9 +1018,9 @@ def serve_full_width(arch: str, card: str, max_batch=None, periods=None):
     emit(graph)
     n = layer_counts(cfg)
     kernels = path_kernels(cfg)
-    want = {"flash_attention": n["kv"] * prefill_calls,
+    want = {"flash_attention": (n["kv"] + n["win"]) * prefill_calls,
             "ssd": n["ssm"] * prefill_calls,
-            "paged_attention": n["kv"] * len(decodes)}
+            "paged_attention": (n["kv"] + n["win"]) * len(decodes)}
     if not (len(done) == n_req
             and all(len(r.generated) == max_new for r in done)
             and launches == want and all(want[n] > 0 for n in kernels)
@@ -1087,7 +1141,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build_all()
     emit({"phase": "card", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
@@ -1145,7 +1199,7 @@ def main() -> int:
              "src/repro/kernels/flash_attention/flash_attention.py:23", flash),
         line("ssd", "cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/ssd.py:20", scan),
-    ], "not_ported": []})
+    ], "not_ported": [], "smoke_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
-"""Architecture registry of the port: ``get_config("<arch-id>")`` for the
-dense full-attention configs (the testbed backends, minicpm-2b,
-qwen3-32b, and the stub-frontend internvl2-1b and musicgen-medium), the
+"""Architecture registry of the port: ``get_config("<arch-id>")`` for every
+config of the JAX package (counterpart of
+``repro/configs/__init__.py:41-45``): the dense full-attention configs (the
+testbed backends, minicpm-2b, qwen3-32b, and the stub-frontend
+internvl2-1b and musicgen-medium), the 5:1 local:global window configs
+gemma3-27b and gemma3-12b, the window + MoE mixtral-8x22b, the
 attention-free Mamba-2 model, the MLA + MoE deepseek-v2-lite-16b and the
-mamba/attention/MoE hybrid jamba-v0.1-52b (counterpart of
-``repro/configs/__init__.py:41-45``).  The window-mixer configs (gemma3,
-mixtral) wait for the slice that ports their mixer."""
+mamba/attention/MoE hybrid jamba-v0.1-52b."""
 from __future__ import annotations
 
 import importlib
@@ -23,6 +24,9 @@ _REGISTRY = {
     "qwen2.5-14b": "qwen25_14b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite",
     "jamba-v0.1-52b": "jamba_52b",
+    "gemma3-27b": "gemma3_27b",
+    "gemma3-12b": "gemma3_12b",
+    "mixtral-8x22b": "mixtral_8x22b",
 }
 
 ALL_ARCHS = tuple(_REGISTRY)

@@ -17,14 +17,18 @@ events deque.  Deliberate differences:
   free, into a CUDA graph (the counterpart of ``jax.jit``) and replayed on
   every step (``graph_replays`` counts them); a capture or replay that
   fails raises.  On the CPU the same padded step runs eagerly.  The engine
-  holds pages only for attention layers, per-slot latent rows
-  (``LatentCache``) only for MLA layers and per-slot states
+  holds pages only for full attention layers, per-slot K/V rings
+  (``WindowCache``, the JAX engine's ring; the paged kernel reads them
+  through a constant identity table) only for window layers, per-slot
+  latent rows (``LatentCache``) only for MLA layers and per-slot states
   (``SSMStateCache``) only for mamba layers; decode updates every slot's
-  latent rows and state in place;
+  ring rows, latent rows and state in place.  Without a paged cache the
+  step's context lengths are each request's token count, 0 in a free row;
 * chunked prefill stages into a linear K/V buffer, as the JAX engine does,
   and flash attention sees it cut to ``pos0 + C`` rows.  When the prompt is
-  complete its rows are copied into freshly allocated pages: for full
-  attention that is what ``ring_convert_cache`` reduces to;
+  complete the full layers' rows are copied into freshly allocated pages
+  and the window layers' last ``min(L, S)`` rows into their rings at ``t
+  % S``: what ``ring_convert_cache`` does;
 * ``checkpoint_request`` also releases the request's pages; its state
   slot is free once the engine's ``slots`` entry is, and the next prefill
   there overwrites it;
@@ -57,6 +61,7 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine.kv_cache import PagedKVCache
 from repro_torch.engine.latent_cache import LatentCache
 from repro_torch.engine.state_cache import SSMStateCache
+from repro_torch.engine.window_cache import WindowCache
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.ssd.ops import ssd
@@ -84,8 +89,9 @@ class EngineRequest:
 
 class InferenceEngine:
     """Continuous-batching engine: ``max_batch`` slots over one paged KV
-    cache (attention layers), one per-slot latent cache (MLA layers) and
-    one per-slot state cache (mamba layers)."""
+    cache (full attention layers), one per-slot ring cache (window
+    layers), one per-slot latent cache (MLA layers) and one per-slot state
+    cache (mamba layers)."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Model] = None, *,
                  max_batch: int = 8, max_len: int = 256, seed: int = 0,
@@ -111,6 +117,9 @@ class InferenceEngine:
                                    slots=max_batch, max_len=max_len,
                                    dtype=params.dtype, device=self.device)
                       if "kv" in kinds else None)
+        self.window = (WindowCache(cfg, max_batch, max_len, page_size,
+                                   dtype=params.dtype, device=self.device)
+                       if "win" in kinds else None)
         self.latent = (LatentCache(cfg, max_batch, max_len, dtype=params.dtype,
                                    device=self.device)
                        if "mla" in kinds else None)
@@ -142,11 +151,12 @@ class InferenceEngine:
     def _init_decode_inputs(self):
         """One packed int32 buffer on the host (pinned on the card) and its
         device copy: tokens [B], then with attention or MLA layers context
-        lengths [B], then with attention layers block tables [B, W]; the
-        step's cache view reads the device copy."""
+        lengths [B], then with full attention layers block tables [B, W];
+        the step's cache view reads the device copy."""
         B = self.max_batch
         n = B
-        if self.cache is not None or self.latent is not None:
+        if (self.cache is not None or self.window is not None
+                or self.latent is not None):
             n += B
         if self.cache is not None:
             table, _ = self.cache.table_view()
@@ -161,6 +171,8 @@ class InferenceEngine:
             self._view.update({"k_pages": self.cache.k_pages,
                                "v_pages": self.cache.v_pages,
                                "block_tables": self._dev[2 * B:].view(B, -1)})
+        if self.window is not None:
+            self._view.update(self.window.decode_view())
         if self.latent is not None:
             self._view.update(self.latent.decode_view())
         if self.states is not None:
@@ -186,7 +198,7 @@ class InferenceEngine:
             if rows:
                 h[2 * B:].reshape(B, -1)[rows] = table[rows]
                 n = h.size
-        elif self.latent is not None:
+        elif self.window is not None or self.latent is not None:
             h[B:2 * B] = 0
             for i in active:
                 h[B + i] = len(self.slots[i].tokens)
@@ -204,9 +216,9 @@ class InferenceEngine:
     def _capture(self):
         """Warm the step up on a side stream, then capture it into a CUDA
         graph.  Every slot is free here, so these steps write only the
-        scratch page and free mamba slots.  The kernel launch counts are
-        left as they were; ``_graph_launches`` keeps what one replay
-        launches."""
+        scratch page, row 0 of free rings and latent rows, and free mamba
+        slots.  The kernel launch counts are left as they were;
+        ``_graph_launches`` keeps what one replay launches."""
         t0 = time.perf_counter()
         before = [k.launches for k in KERNELS]
         side = torch.cuda.Stream(self.device)
@@ -317,12 +329,16 @@ class InferenceEngine:
         logits, states = prefill(self.params, self._tokens(req.tokens)[None])
         kv = [(a[0], b[0]) for (kind, _), (a, b)
               in zip(self._layer_caches, states) if kind == "kv"]
+        win = [(a[0], b[0]) for (kind, _), (a, b)
+               in zip(self._layer_caches, states) if kind == "win"]
         mla = [(a[0], b[0]) for (kind, _), (a, b)
                in zip(self._layer_caches, states) if kind == "mla"]
         ssm = [({k: v[0] for k, v in a.items()}, b[0]) for (kind, _), (a, b)
                in zip(self._layer_caches, states) if kind == "ssm"]
         if self.cache is not None:
             self._to_pages(slot, kv)
+        if self.window is not None:
+            self.window.write(slot, win)
         if self.latent is not None:
             self.latent.write(slot, mla)
         if self.states is not None:
@@ -349,10 +365,16 @@ class InferenceEngine:
                                   self._tokens(req.tokens[done:done + n])[None])
         if sc["pos"] < n_total:
             return
-        # prompt complete: copy the staged rows into pages, emit a token
-        self._to_pages(st["slot"], [(sc["k"][i, 0, :n_total],
-                                     sc["v"][i, 0, :n_total])
-                                    for i in range(sc["k"].shape[0])])
+        # prompt complete: copy the staged rows into pages and rings, emit
+        # a token
+        rows = {"kv": [], "win": []}
+        for i, (kind, _) in enumerate(self._layer_caches):
+            rows[kind].append((sc["k"][i, 0, :n_total],
+                               sc["v"][i, 0, :n_total]))
+        if self.cache is not None:
+            self._to_pages(st["slot"], rows["kv"])
+        if self.window is not None:
+            self.window.write(st["slot"], rows["win"])
         req.tokens.append(self._greedy(logits)[0])
         self.slots[st["slot"]] = req
         self.events.append(("prefill", req.prompt_len,

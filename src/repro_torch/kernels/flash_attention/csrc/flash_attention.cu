@@ -61,15 +61,18 @@
 //   bf16 outputs of kernel and plain version differ by at most one bf16
 //   step, within the bf16 tolerance of 2e-2 (PERF.md has the errors).
 //
-// * fp32 (any hd), and bf16 with hd 16, 32, 48, 80, 96 or 112:
-//   flash_kernel, the first port, on the fp32 CUDA cores.  fp32 on the
-//   tensor cores would be TF32, which breaks the 1e-4 fp32 tolerance.  One
-//   block of 256 threads per (64-row q tile, head, sequence).  The q tile
-//   stays in shared memory; 64-key tiles of K and then V pass through one
+// * fp32 (any hd), and bf16 with hd 16, 32, 48, 80, 96, 112 or 256
+//   (gemma3-12b): flash_kernel, the first port, on the fp32 CUDA cores.
+//   fp32 on the tensor cores would be TF32, which breaks the 1e-4 fp32
+//   tolerance.  One block of 256 threads per (64-row q tile, head,
+//   sequence).  The q tile stays in shared memory; 64-key tiles of K and then V pass through one
 //   shared buffer (rows padded by one float against bank conflicts).  Each
 //   thread owns a 4 x 4 patch of the score tile and 4 rows x hd/16 columns
 //   of the output accumulator in registers; row max and row sum are reduced
-//   with shuffles across the 16 threads that share a row.
+//   with shuffles across the 16 threads that share a row.  At hd 256 that
+//   is 64 accumulators a thread, and q, the K/V tile and P take 148 KB of
+//   dynamic shared memory: one block an SM.  A wgmma route at hd 256 (its
+//   O accumulator alone would be 128 registers a thread) is later work.
 
 #include <cuda.h>
 #include <stdint.h>
@@ -86,7 +89,8 @@ constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16: ty picks rows, tx picks columns
 
-// NJ: hd / 16 rounded up to the instantiation (4 for hd <= 64, 8 for <= 128)
+// NJ: hd / 16 rounded up to the instantiation (4 for hd <= 64, 8 for <= 128,
+// 16 for 256)
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -265,8 +269,13 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   if (hd <= 64)
     return launch<T, 4>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb, sob,
                         causal, window, softcap, stream);
-  return launch<T, 8>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb, sob,
-                      causal, window, softcap, stream);
+  if (hd <= 128)
+    return launch<T, 8>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb, sob,
+                        causal, window, softcap, stream);
+  if (hd == 256)
+    return launch<T, 16>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb,
+                         sob, causal, window, softcap, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -885,7 +894,8 @@ extern "C" int flash_attention_uses_wgmma(int is_bf16, int hd) {
 }
 
 // Batch strides are in elements; inside a sequence q/k/v/o are contiguous
-// [L, heads, hd].  window <= 0 means no window, softcap <= 0 no softcap.
+// [L, heads, hd].  hd: a multiple of 16 up to 128, or 256.  window <= 0
+// means no window, softcap <= 0 no softcap.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Lq,

@@ -5,7 +5,9 @@ of ``flash_attention_pallas``).  A CUDA tensor launches the hand-written
 kernel or raises; a CPU tensor takes the plain version in ``ref.py``.
 The C entry point picks the CUDA kernel by dtype and head dim
 (:func:`cuda_kernel` reports which): bf16 at hd 64 or 128 runs on the
-tensor cores (wgmma, TMA), everything else on the fp32 FMA kernel.
+tensor cores (wgmma, TMA), everything else on the fp32 FMA kernel,
+gemma3-12b's hd 256 included (bf16 or fp32).  Head dims: multiples of 16
+up to 128, and 256.
 ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -32,8 +34,9 @@ def _check(q, k, v, window, softcap):
     KV = k.shape[2]
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} KV heads")
-    if hd % 16 or not 16 <= hd <= 128:
-        raise ValueError(f"head dim {hd} is not a multiple of 16 in [16, 128]")
+    if not ((hd % 16 == 0 and 16 <= hd <= 128) or hd == 256):
+        raise ValueError(f"head dim {hd} is neither a multiple of 16 in "
+                         f"[16, 128] nor 256")
     if Lq > k.shape[1]:
         raise ValueError("q rows align to the tail of k: need Lq <= Lk")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
@@ -85,8 +88,9 @@ flash_attention.launches = 0
 
 def cuda_kernel(dtype, hd: int) -> str:
     """Which CUDA kernel a call with this dtype and head dim launches:
-    ``"wgmma"`` (tensor cores) or ``"fma"`` (fp32 CUDA cores), as the C
-    entry point decides.  Builds the library on first use."""
+    ``"wgmma"`` (tensor cores: bf16 at hd 64 and 128) or ``"fma"`` (fp32
+    CUDA cores: fp32, and bf16 at every other head dim, 256 included), as
+    the C entry point decides.  Builds the library on first use."""
     f = _build.entry("flash_attention", "flash_attention_uses_wgmma",
                      [_I, _I])
     return "wgmma" if f(int(dtype == torch.bfloat16), hd) else "fma"

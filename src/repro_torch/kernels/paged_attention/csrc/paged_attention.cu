@@ -6,8 +6,10 @@
 // Computes: one query token per sequence, q [B, H, hd], attends over the K/V
 //   pages [P, page, KV, hd] that its row of block_tables [B, n_pages] names,
 //   up to context_lens[b] tokens.  Query head h reads KV head h / G, G = H/KV
-//   (1..8).  Online softmax in fp32.  A sequence with ctx = 0 gets zeros, as
-//   the Pallas kernel does.
+//   (1..8); hd is a multiple of 16 up to 128, or 256 (gemma3-12b).  Online
+//   softmax in fp32.  A sequence with ctx = 0 gets zeros, as the Pallas
+//   kernel does.  The same call reads a window layer's per-slot ring: its
+//   table names the slot's own pages, its length is min(ctx, ring size).
 //
 // Bound: device memory.  A launch reads sum(ctx) * KV * hd K and V elements
 //   once each and does 4 * G flops per element pair: at G = 4 in bf16 about
@@ -44,12 +46,17 @@
 //     as A fragments in registers, K read by ldmatrix), the online softmax
 //     on S's accumulator fragments, then O += P V with P packed to bf16 A
 //     fragments and V read by ldmatrix.trans.  K/V rows are padded by 16
-//     bytes in shared memory so that ldmatrix is conflict-free.  fp32 stays
-//     on CUDA-core FMAs (the tensor cores would round it to TF32): a
-//     half-warp per token, each lane holding 8 elements of the G query rows
-//     and of G accumulators in registers, in 32-token sub-tiles.  Every warp
-//     (bf16) or half-warp (fp32) keeps its own online softmax; their states
-//     merge once, at the end of the block, through shared memory.
+//     bytes in shared memory so that ldmatrix is conflict-free.  At hd 256
+//     the same code holds a 64 x 256 fp32 output fragment per warp (128
+//     registers a thread) and three stages of 64 rows of 264 bf16 (203 KB):
+//     one block an SM.  fp32 stays on CUDA-core FMAs (the tensor cores
+//     would round it to TF32): a half-warp per token up to hd 128, a warp
+//     per token at hd 256, each lane holding 8 elements of the G query rows
+//     and of G accumulators in registers; each group takes 4 tokens of a
+//     tile (32 tokens with half-warps, 16 with warps), so the registers and
+//     the tile's bytes stay those of hd 128.  Every warp (bf16) or group
+//     (fp32) keeps its own online softmax; their states merge once, at the
+//     end of the block, through shared memory.
 
 #include <stdint.h>
 
@@ -409,22 +416,27 @@ paged_split_mma_kernel(const bf16* __restrict__ q,
 
 // ---------------------------------------------------------------------------
 // Pass 1, fp32: CUDA-core FMAs.  One block per (KV head, sequence, split);
-// 32-token tiles, a half-warp per token.
+// LANES lanes per token (16 up to hd 128, 32 at hd 256), 4 tokens a group
+// per tile.
 // ---------------------------------------------------------------------------
 
-constexpr int kFmaTile = 32;
 constexpr int kFmaStages = 3;  // 3 x 32 KB at hd 128: two blocks an SM
-constexpr int kLanes = 16;     // lanes per token
-constexpr int kHalfWarps = kThreads / kLanes;
-constexpr int kPerHalfWarp = kFmaTile / kHalfWarps;  // tokens a tile
+constexpr int kPerGroup = 4;   // tokens a group takes per tile
 
-// The 8 elements of a row that lane c owns: 16-byte chunks c and c + 16 of
-// 4 floats each; chunks past the row are 0.
+template <int LANES>
+struct FmaCfg {
+  static constexpr int kGroups = kThreads / LANES;      // half-warps or warps
+  static constexpr int kTile = kGroups * kPerGroup;     // 32 or 16 tokens
+};
+
+// The 8 elements of a row that lane c owns: 16-byte chunks c and c + LANES
+// of 4 floats each; chunks past the row are 0.
+template <int LANES>
 __device__ __forceinline__ void lane_row(const float* row, int c, int nch,
                                          float (&x)[8]) {
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    const int ch = c + kLanes * k;
+    const int ch = c + LANES * k;
     if (ch < nch) {
       repro::load16(row + ch * 4, x + k * 4);
     } else {
@@ -434,15 +446,16 @@ __device__ __forceinline__ void lane_row(const float* row, int c, int nch,
   }
 }
 
-// Sum over the 16 lanes of a half-warp (every lane gets the sum).
-__device__ __forceinline__ float half_warp_sum(float a) {
+// Sum over the LANES lanes of a group (every lane gets the sum).
+template <int LANES>
+__device__ __forceinline__ float group_sum(float a) {
 #pragma unroll
-  for (int o = kLanes / 2; o > 0; o >>= 1)
+  for (int o = LANES / 2; o > 0; o >>= 1)
     a += __shfl_xor_sync(0xffffffffu, a, o);
   return a;
 }
 
-template <int G>
+template <int G, int LANES>
 __global__ void __launch_bounds__(kThreads)
 paged_split_fma_kernel(const float* __restrict__ q,
                        const float* __restrict__ k_pages,
@@ -452,6 +465,8 @@ paged_split_fma_kernel(const float* __restrict__ q,
                        float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                        int H, int KV, int hd, int page, int n_pages,
                        int split_tokens, float scale_log2) {
+  constexpr int kGroups = FmaCfg<LANES>::kGroups;
+  constexpr int kTile = FmaCfg<LANES>::kTile;
   const int kvh = blockIdx.x, b = blockIdx.y;
   const size_t part = ((size_t)b * KV + kvh) * gridDim.z + blockIdx.z;
   float* ml = ws_ml + part * 2 * G;  // [m[G], l[G]]
@@ -462,7 +477,7 @@ paged_split_fma_kernel(const float* __restrict__ q,
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);
-  const int grp = threadIdx.x / kLanes, c = threadIdx.x % kLanes;
+  const int grp = threadIdx.x / LANES, c = threadIdx.x % LANES;
   const int nch = hd / 4;
 
   // the G query rows of this KV head are contiguous in q
@@ -470,7 +485,7 @@ paged_split_fma_kernel(const float* __restrict__ q,
   const float* qb = q + ((size_t)b * H + (size_t)kvh * G) * hd;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    lane_row(qb + g * hd, c, nch, qr[g]);
+    lane_row<LANES>(qb + g * hd, c, nch, qr[g]);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       qr[g][e] *= scale_log2;
@@ -481,16 +496,16 @@ paged_split_fma_kernel(const float* __restrict__ q,
   }
 
   long long* offs =
-      reinterpret_cast<long long*>(ring + kFmaStages * 2 * kFmaTile * hd);
-  stream_tiles<float, kFmaTile, kFmaStages>(
+      reinterpret_cast<long long*>(ring + kFmaStages * 2 * kTile * hd);
+  stream_tiles<float, kTile, kFmaStages>(
       ring, offs, hd, k_pages, v_pages, block_tables + (size_t)b * n_pages,
       KV, hd, page, start, end, [&](int i, const float* ks, const float* vs) {
-        const int t0 = start + i * kFmaTile;
-        float s[kPerHalfWarp][G];
+        const int t0 = start + i * kTile;
+        float s[kPerGroup][G];
 #pragma unroll
-        for (int u = 0; u < kPerHalfWarp; ++u) {
+        for (int u = 0; u < kPerGroup; ++u) {
           float kx[8];
-          lane_row(ks + (grp + u * kHalfWarps) * hd, c, nch, kx);
+          lane_row<LANES>(ks + (grp + u * kGroups) * hd, c, nch, kx);
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             float a = 0.f;
@@ -500,27 +515,27 @@ paged_split_fma_kernel(const float* __restrict__ q,
           }
         }
 #pragma unroll
-        for (int u = 0; u < kPerHalfWarp; ++u) {
-          const bool valid = t0 + grp + u * kHalfWarps < end;
+        for (int u = 0; u < kPerGroup; ++u) {
+          const bool valid = t0 + grp + u * kGroups < end;
 #pragma unroll
           for (int g = 0; g < G; ++g) {
-            const float a = half_warp_sum(s[u][g]);
+            const float a = group_sum<LANES>(s[u][g]);
             s[u][g] = valid ? a : -INFINITY;
           }
         }
-        // m stays -inf until the half-warp has seen a token; base keeps
+        // m stays -inf until the group has seen a token; base keeps
         // -inf - -inf away
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           float mt = s[0][g];
 #pragma unroll
-          for (int u = 1; u < kPerHalfWarp; ++u) mt = fmaxf(mt, s[u][g]);
+          for (int u = 1; u < kPerGroup; ++u) mt = fmaxf(mt, s[u][g]);
           const float m_new = fmaxf(m[g], mt);
           const float base = m_new == -INFINITY ? 0.f : m_new;
           const float alpha = ex2(m[g] - base);
           float ls = 0.f;
 #pragma unroll
-          for (int u = 0; u < kPerHalfWarp; ++u) {
+          for (int u = 0; u < kPerGroup; ++u) {
             s[u][g] = ex2(s[u][g] - base);
             ls += s[u][g];
           }
@@ -530,9 +545,9 @@ paged_split_fma_kernel(const float* __restrict__ q,
           for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
         }
 #pragma unroll
-        for (int u = 0; u < kPerHalfWarp; ++u) {
+        for (int u = 0; u < kPerGroup; ++u) {
           float vx[8];
-          lane_row(vs + (grp + u * kHalfWarps) * hd, c, nch, vx);
+          lane_row<LANES>(vs + (grp + u * kGroups) * hd, c, nch, vx);
 #pragma unroll
           for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -541,9 +556,9 @@ paged_split_fma_kernel(const float* __restrict__ q,
         }
       });
 
-  float* red = reinterpret_cast<float*>(smem_raw);  // [kHalfWarps][G][hd]
-  float* sm_m = red + kHalfWarps * G * hd;          // [kHalfWarps][G]
-  float* sm_l = sm_m + kHalfWarps * G;              // [kHalfWarps][G]
+  float* red = reinterpret_cast<float*>(smem_raw);  // [kGroups][G][hd]
+  float* sm_m = red + kGroups * G * hd;             // [kGroups][G]
+  float* sm_l = sm_m + kGroups * G;                 // [kGroups][G]
   if (c == 0) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -554,11 +569,11 @@ paged_split_fma_kernel(const float* __restrict__ q,
   __syncthreads();
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const float w = group_weight(sm_m, kHalfWarps, G, g, m[g]);
+    const float w = group_weight(sm_m, kGroups, G, g, m[g]);
     float* dst = red + (grp * G + g) * hd;
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      const int ch = c + kLanes * k;
+      const int ch = c + LANES * k;
       if (ch < nch) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) dst[ch * 4 + e] = acc[g][k * 4 + e] * w;
@@ -566,8 +581,7 @@ paged_split_fma_kernel(const float* __restrict__ q,
     }
   }
   __syncthreads();
-  write_partial(red, sm_m, sm_l, kHalfWarps, G, hd, ws_acc + part * G * hd,
-                ml);
+  write_partial(red, sm_m, sm_l, kGroups, G, hd, ws_acc + part * G * hd, ml);
 }
 
 // ---------------------------------------------------------------------------
@@ -652,22 +666,40 @@ int launch_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <int G>
+template <int G, int LANES>
 int launch_fma(const Args& a) {
-  const size_t ring = (size_t)kFmaStages * 2 * kFmaTile * a.hd * 4 +
-                      kFmaStages * kFmaTile * sizeof(long long);
+  using C = FmaCfg<LANES>;
+  const size_t ring = (size_t)kFmaStages * 2 * C::kTile * a.hd * 4 +
+                      kFmaStages * C::kTile * sizeof(long long);
   const size_t merge =
-      ((size_t)kHalfWarps * G * a.hd + 2 * kHalfWarps * G) * 4;
-  const cudaError_t e = allow_smem(paged_split_fma_kernel<G>, ring, merge);
+      ((size_t)C::kGroups * G * a.hd + 2 * C::kGroups * G) * 4;
+  const cudaError_t e =
+      allow_smem(paged_split_fma_kernel<G, LANES>, ring, merge);
   if (e != cudaSuccess) return (int)e;
-  paged_split_fma_kernel<G><<<dim3(a.KV, a.B, a.n_split), kThreads,
-                              ring > merge ? ring : merge, a.stream>>>(
+  paged_split_fma_kernel<G, LANES><<<dim3(a.KV, a.B, a.n_split), kThreads,
+                                     ring > merge ? ring : merge,
+                                     a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k_pages),
       static_cast<const float*>(a.v_pages),
       static_cast<const int*>(a.block_tables),
       static_cast<const int*>(a.context_lens), a.ws_acc, a.ws_ml, a.H, a.KV,
       a.hd, a.page, a.n_pages, a.split_tokens, a.scale_log2);
   return (int)cudaGetLastError();
+}
+
+template <int LANES>
+int launch_fma_g(const Args& a) {
+  switch (a.H / a.KV) {
+    case 1: return launch_fma<1, LANES>(a);
+    case 2: return launch_fma<2, LANES>(a);
+    case 3: return launch_fma<3, LANES>(a);
+    case 4: return launch_fma<4, LANES>(a);
+    case 5: return launch_fma<5, LANES>(a);
+    case 6: return launch_fma<6, LANES>(a);
+    case 7: return launch_fma<7, LANES>(a);
+    case 8: return launch_fma<8, LANES>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int launch_pass1(const Args& a, bool is_bf16) {
@@ -681,20 +713,11 @@ int launch_pass1(const Args& a, bool is_bf16) {
       case 96: return launch_mma<96>(a);
       case 112: return launch_mma<112>(a);
       case 128: return launch_mma<128>(a);
+      case 256: return launch_mma<256>(a);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  switch (a.H / a.KV) {
-    case 1: return launch_fma<1>(a);
-    case 2: return launch_fma<2>(a);
-    case 3: return launch_fma<3>(a);
-    case 4: return launch_fma<4>(a);
-    case 5: return launch_fma<5>(a);
-    case 6: return launch_fma<6>(a);
-    case 7: return launch_fma<7>(a);
-    case 8: return launch_fma<8>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return a.hd <= 128 ? launch_fma_g<16>(a) : launch_fma_g<32>(a);
 }
 
 template <typename T>
@@ -713,9 +736,9 @@ int launch_merge(const Args& a, void* out) {
 // floats.  The splits must be whole 64-token tiles and cover the table:
 // split_tokens % 64 == 0 and (n_split - 1) * split_tokens < n_pages * page
 // <= n_split * split_tokens.  Returns cudaErrorInvalidValue for a split, a
-// grouping (H / KV in 1..8) or a head dim (a multiple of 16 up to 128) that
-// the kernel does not take, else cudaGetLastError() after the launches (0
-// on success).
+// grouping (H / KV in 1..8) or a head dim (a multiple of 16 up to 128, or
+// 256) that the kernel does not take, else cudaGetLastError() after the
+// launches (0 on success).
 extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       const void* v_pages,
                                       const void* block_tables,
@@ -728,7 +751,7 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
   if (n_split < 1 || split_tokens <= 0 || split_tokens % kSplitAlign ||
       (long long)(n_split - 1) * split_tokens >= n_tokens ||
       (long long)n_split * split_tokens < n_tokens || KV < 1 || H % KV ||
-      H / KV > 8 || hd % 16 || hd < 16 || hd > 128)
+      H / KV > 8 || !((hd % 16 == 0 && hd >= 16 && hd <= 128) || hd == 256))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;

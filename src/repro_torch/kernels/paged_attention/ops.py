@@ -8,7 +8,10 @@ sequence, split) writes partial softmax results to an fp32 workspace, and
 a second kernel merges the splits.  :func:`partition` picks the splits
 from shapes alone, so a call never reads ``context_lens`` on the host.
 ``paged_attention.launches`` counts wrapper calls that launched the
-kernel, one per call whatever the number of passes.
+kernel, one per call whatever the number of passes.  Head dims: multiples
+of 16 up to 128, and 256 (gemma3-12b): pass 1 runs bf16 on the tensor
+cores (mma.sync) and fp32 on the CUDA cores at every one of them.  The
+engine also calls it over window layers' per-slot rings.
 """
 from __future__ import annotations
 
@@ -62,8 +65,9 @@ def _check(q, k_pages, v_pages, block_tables, context_lens):
     if H // KV > MAX_GROUP:
         raise ValueError(f"{H // KV} query heads per KV head; the kernel "
                          f"takes at most {MAX_GROUP}")
-    if hd % 16 or not 16 <= hd <= 128:
-        raise ValueError(f"head dim {hd} is not a multiple of 16 in [16, 128]")
+    if not ((hd % 16 == 0 and 16 <= hd <= 128) or hd == 256):
+        raise ValueError(f"head dim {hd} is neither a multiple of 16 in "
+                         f"[16, 128] nor 256")
     if (block_tables.dim() != 2 or block_tables.shape[0] != B
             or block_tables.shape[1] == 0 or tuple(context_lens.shape) != (B,)):
         raise ValueError("want block_tables [B, n_pages>0], context_lens [B]")

@@ -4,8 +4,10 @@
       [--arch llama3.1-8b] [--periods N] [--batch 8] [--prompt 1024] \\
       [--steps 5] [--out build/profile_step]
 
-One engine (bf16, random weights from a seed; ``--periods`` cuts a
-one-stage config's depth, as jamba-v0.1-52b needs) admits ``--batch`` requests
+One engine (bf16, random weights from a seed; ``--arch`` takes every id
+of ``configs.ALL_ARCHS``, gemma3-27b's window layers included;
+``--periods`` cuts a one-stage config's depth, as jamba-v0.1-52b and
+mixtral-8x22b need) admits ``--batch`` requests
 of ``--prompt`` tokens one-shot; the admission step is traced as prefill.
 Then ``--steps`` decode steps are traced with ``torch.profiler``: on the
 card each is one replay of the engine's CUDA graph, whose kernel nodes the

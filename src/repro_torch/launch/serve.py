@@ -9,8 +9,8 @@ the load counts queued and staged requests as well as running ones (all
 requests are submitted before the first step, so counting running ones
 alone sends every request to engine 0); the engines share one weight set;
 odd-numbered engines use chunked prefill where the config allows it (full
-attention only: mamba and MLA layers prefill in one shot), so one fleet
-serves through both prefill paths.
+and window attention only: mamba and MLA layers prefill in one shot), so
+one fleet serves through both prefill paths.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.1-8b \\
       --n-requests 12 --engines 2                       # full width, CUDA
@@ -19,13 +19,17 @@ serves through both prefill paths.
 
 ``--arch`` takes every id of ``configs.ALL_ARCHS``: the dense llama3.1-8b,
 qwen2.5-14b, minicpm-2b, qwen3-32b, internvl2-1b and musicgen-medium
-(the last two text-only), mamba2-1.3b, deepseek-v2-lite-16b (MLA over a
-per-slot latent cache, MoE) and jamba-v0.1-52b (mamba, attention, MoE).
-At ``--size full`` one card holds deepseek-v2-lite-16b whole (31.4 GB of
-bf16 weights); qwen3-32b needs ``build_engines(..., max_batch=4)`` and
+(the last two text-only), gemma3-27b and gemma3-12b (5:1 window:full
+layers, the window layers over per-slot rings), mamba2-1.3b,
+deepseek-v2-lite-16b (MLA over a per-slot latent cache, MoE),
+jamba-v0.1-52b (mamba, attention, MoE) and mixtral-8x22b (window layers,
+MoE).  At ``--size full`` one card holds deepseek-v2-lite-16b (31.4 GB of
+bf16 weights), gemma3-27b (54.0 GB) and gemma3-12b (23.5 GB, head dim
+256) whole; qwen3-32b needs ``build_engines(..., max_batch=4)``;
 jamba-v0.1-52b (102.9 GB) fits only cut to two of its four periods
-(``cut_periods``: 16 of 32 layers, 52.0 GB), a config that
-``build_engines`` takes and the CLI does not build.
+(``cut_periods``: 16 of 32 layers, 52.0 GB) and mixtral-8x22b (281.3 GB)
+only cut to 8 of its 56 layers (``cut_periods(cfg, 8)``, 40.9 GB): configs
+that ``build_engines`` takes and the CLI does not build.
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ SIZES: Dict[str, dict] = {
 
 def cut_periods(cfg, periods: int):
     """``cfg`` at full width with its one stage repeated ``periods`` times:
-    depth cut to fit the card (jamba-v0.1-52b at 2 of its 4 periods)."""
+    depth cut to fit the card (jamba-v0.1-52b at 2 of its 4 periods,
+    mixtral-8x22b, whose stage is one layer, at 8 of 56)."""
     (stage,) = cfg.stages
     return dataclasses.replace(
         cfg, num_layers=len(stage.pattern) * periods,
@@ -134,7 +139,9 @@ def serve(engines: List[InferenceEngine], requests: List[EngineRequest],
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.1-8b",
-                    help=f"one of {', '.join(ALL_ARCHS)}")
+                    help=f"one of {', '.join(ALL_ARCHS)} (at --size full, "
+                    f"jamba-v0.1-52b and mixtral-8x22b do not fit one card "
+                    f"whole: build them with build_engines(cut_periods(...)))")
     ap.add_argument("--engines", type=int, default=2)
     ap.add_argument("--n-requests", type=int, default=12)
     ap.add_argument("--max-new", type=int, default=12)

@@ -4,10 +4,10 @@
 which torch cannot reproduce, so this bridge is how both packages compute
 with the same weights.  The JAX tree holds ``embed``, ``final_norm``,
 ``lm_head``, ``prefix_proj`` (configs with prefix embeddings) and a
-``stages`` list; each stage maps ``blk{i}`` to that
-pattern slot's ``attn`` (full attention or MLA), ``mixer`` (mamba) and
-``ffn`` (dense or MoE) dicts, whichever the layer has, with a leading
-repeat axis.  A MoE ``ffn`` nests its shared experts' leaves under
+``stages`` list; each stage maps ``blk{i}`` to that pattern slot's
+``attn`` (full or window attention, or MLA), ``mixer`` (mamba) and ``ffn``
+(dense or MoE) dicts, whichever the layer has, with a leading repeat
+axis.  A MoE ``ffn`` nests its shared experts' leaves under
 ``shared``; the port keeps them flat as ``shared_w_gate`` and so on
 (``layers.SHARED``), since ``nn.ParameterDict`` keys cannot nest.  Leaves
 keep their dtype: a bf16 tree's ``A_log``, ``D``, ``dt_bias`` and MoE

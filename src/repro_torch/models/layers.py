@@ -12,10 +12,13 @@ constraints), ``_sdpa`` (:119-132), ``attn_forward`` (:175-183),
 layer).
 
 Attention goes through the kernel wrappers: ``attn_forward`` and
-``attn_chunk`` through ``flash_attention``, ``attn_decode`` through
-``paged_attention`` over the engine's paged cache (the JAX layer attends
-over a dense per-slot ring).  ``_sdpa`` stays as the plain reference the
-tests compare the layers against.  MLA and the MoE FFN run no kernel in
+``attn_chunk`` through ``flash_attention`` (full and window layers),
+``attn_decode`` through ``paged_attention`` over the engine's paged cache
+(the JAX layer attends over a dense per-slot ring), and ``window_decode``
+through ``paged_attention`` over a window layer's per-slot ring, laid out
+as whole pages of its slot (the JAX layer's ring with a masked
+``_sdpa``).  ``_sdpa`` stays as the plain reference the tests compare the
+layers against.  MLA and the MoE FFN run no kernel in
 the JAX package and none here: they are plain torch ops, and their decode
 paths read nothing on the host, so the engine's decode graph captures
 them.  Parameters are ``nn.ParameterDict``s
@@ -159,6 +162,35 @@ def attn_decode(p, cfg: ModelConfig, x, k_pages, v_pages, block_tables,
     k_pages.view(-1, *k_pages.shape[2:])[idx] = k_new[:, 0]
     v_pages.view(-1, *v_pages.shape[2:])[idx] = v_new[:, 0]
     y = paged_attention(q[:, 0], k_pages, v_pages, block_tables, context_lens)
+    return y.reshape(B, 1, -1) @ p["wo"]
+
+
+def window_decode(p, cfg: ModelConfig, x, k_ring, v_ring, ring_tables,
+                  context_lens, size: int):
+    """One-token decode of a window layer over its per-slot ring of
+    ``size`` = min(window, max_len) rows: the window branch of the JAX
+    ``attn_decode``.  x: [B, 1, d]; k/v_ring: [slots * n, page, KV, hd] of
+    this layer, slot b's ring being pages ``ring_tables[b]`` (int32 [B,
+    n], n * page >= size); context_lens int32 [B] counts the new token.
+    The new K/V goes to ring row ``pos % size``, pos = context_lens - 1,
+    and the paged kernel attends over rows 0 .. min(context_lens, size) -
+    1: every row the ring holds once it has wrapped, else the positions
+    so far, as JAX's mask ``slot <= pos | pos >= S`` keeps.  Rows hold K
+    after RoPE, so their order does not change the scores.  A free row of
+    length 0 writes row 0 of its own ring and attends over nothing
+    (zeros); with length 1 it writes and reads row 0.  No host read."""
+    B = x.shape[0]
+    page = k_ring.shape[1]
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    pos = (context_lens.long() - 1).clamp_min(0)
+    q, k_new, v_new = _qkv(p, cfg, h, pos[:, None])
+    row = pos % size
+    idx = ring_tables.long().gather(1, (row // page)[:, None])[:, 0] * page \
+        + row % page
+    k_ring.view(-1, *k_ring.shape[2:])[idx] = k_new[:, 0]
+    v_ring.view(-1, *v_ring.shape[2:])[idx] = v_new[:, 0]
+    y = paged_attention(q[:, 0], k_ring, v_ring, ring_tables,
+                        context_lens.clamp_max(size))
     return y.reshape(B, 1, -1) @ p["wo"]
 
 

@@ -11,25 +11,27 @@ Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
 * layers are a flat ``nn.ModuleList`` in ``cfg.layer_list()`` order, run by
   a Python loop (PyTorch runs eagerly; there is no scan to keep small);
   ``convert.py`` maps them to and from the JAX ``stages`` pytree;
-* ``prefill`` returns each layer's decode state (K/V of an attention layer,
-  which the engine writes into pages; c_kv and k_rope of an MLA layer,
-  which it writes into a latent-cache slot; conv tail and SSM state of a
-  mamba layer, which it writes into a state slot) in place of a ring
-  cache;
+* ``prefill`` returns each layer's decode state (K/V of a full or window
+  attention layer, which the engine writes into pages or into the
+  layer's ring; c_kv and k_rope of an MLA layer, which it writes into a
+  latent-cache slot; conv tail and SSM state of a mamba layer, which it
+  writes into a state slot) in place of a ring cache;
 * ``decode_step`` attends over the paged cache through the paged kernel,
-  writes the new token's K/V into it in place, and updates the latent
+  writes the new token's K/V into it in place, attends over each window
+  layer's ring of ``min(window, max_len)`` rows through the same kernel
+  (the ring laid out as whole pages of its slot), and updates the latent
   rows and the mamba states in place, every slot at once (the engine runs
   it at one fixed shape and, on the card, replays it from a CUDA graph);
 * ``prefill_chunk`` takes only real tokens (no padding to a fixed shape)
   and one ``pos`` for the batch.
 
-Layers run ``full`` attention, ``mla`` or ``mamba`` mixers, each with a
-dense FFN, a MoE FFN or none; the ``window`` mixer raises
-``NotImplementedError``, as does an attention softcap.  MLA keeps its
-parameters under ``attn``, as the JAX tree does.  Configs with
-stub-frontend prefix embeddings (``n_prefix_embeds``) hold
-``prefix_proj``; ``model_forward`` and ``prefill`` take the embeddings,
-and the engine serves such configs text-only, as the JAX engine does.
+Layers run ``full`` or ``window`` attention, ``mla`` or ``mamba`` mixers,
+each with a dense FFN, a MoE FFN or none; an attention softcap raises
+``NotImplementedError``.  Window and MLA layers keep their parameters
+under ``attn``, as the JAX tree does.  Configs with stub-frontend prefix
+embeddings (``n_prefix_embeds``) hold ``prefix_proj``; ``model_forward``
+and ``prefill`` take the embeddings, and the engine serves such configs
+text-only, as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -43,17 +45,19 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
 
-MIXERS, FFNS = ("full", "mla", "mamba"), ("dense", "moe", "none")
-CACHE_OF = {"full": "kv", "mla": "mla", "mamba": "ssm"}
+MIXERS, FFNS = ("full", "window", "mla", "mamba"), ("dense", "moe", "none")
+CACHE_OF = {"full": "kv", "window": "win", "mla": "mla", "mamba": "ssm"}
+ATTN_MIXERS = ("full", "window", "mla")     # layers that hold ``attn``
 
 
 def layer_caches(cfg: ModelConfig) -> List[Tuple[str, int]]:
     """Per layer, in ``cfg.layer_list()`` order: the cache that holds its
-    decode state ("kv": K/V pages of an attention layer; "mla": the latent
-    rows c_kv and k_rope of an MLA layer; "ssm": the conv history and SSM
-    state of a mamba layer) and the layer's rank among the layers of that
-    cache, which indexes the cache's stacked tensors."""
-    ranks = {"kv": 0, "mla": 0, "ssm": 0}
+    decode state ("kv": K/V pages of a full attention layer; "win": the
+    per-slot K/V ring of a window layer; "mla": the latent rows c_kv and
+    k_rope of an MLA layer; "ssm": the conv history and SSM state of a
+    mamba layer) and the layer's rank among the layers of that cache,
+    which indexes the cache's stacked tensors."""
+    ranks = {"kv": 0, "win": 0, "mla": 0, "ssm": 0}
     out = []
     for blk in cfg.layer_list():
         kind = CACHE_OF.get(blk.mixer, "kv")
@@ -63,15 +67,15 @@ def layer_caches(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 class Block(nn.Module):
-    """One decoder layer: an ``attn`` (full or mla mixer) or ``mixer``
-    (mamba) parameter dict, and an ``ffn`` dict (dense or moe) unless
-    ``spec.ffn == "none"``."""
+    """One decoder layer: an ``attn`` (full, window or mla mixer) or
+    ``mixer`` (mamba) parameter dict, and an ``ffn`` dict (dense or moe)
+    unless ``spec.ffn == "none"``."""
 
     def __init__(self, spec: BlockSpec, attn: Optional[nn.ParameterDict] = None,
                  ffn: Optional[nn.ParameterDict] = None,
                  mixer: Optional[nn.ParameterDict] = None):
         super().__init__()
-        if (attn is None) != (spec.mixer not in ("full", "mla")) or \
+        if (attn is None) != (spec.mixer not in ATTN_MIXERS) or \
                 (mixer is None) != (spec.mixer != "mamba") or \
                 (ffn is None) != (spec.ffn == "none"):
             raise ValueError(f"parameters do not match the layer {spec}")
@@ -149,7 +153,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     if cfg.n_prefix_embeds:
         top["prefix_proj"] = L._normal(gen, (d, d), d ** -0.5, dtype)
     blocks = []
-    make_attn = {"full": L.init_attention, "mla": L.init_mla}
+    make_attn = {"full": L.init_attention, "window": L.init_attention,
+                 "mla": L.init_mla}
     make_ffn = {"dense": L.init_ffn, "moe": L.init_moe}
     for blk in cfg.layer_list():
         attn = (make_attn[blk.mixer](cfg, gen, dtype)
@@ -191,7 +196,7 @@ def _run_layers(model: Model, x, positions, collect: bool):
     states = []
     aux = torch.zeros((), device=x.device)
     for blk in model.layers:
-        if blk.spec.mixer == "full":
+        if blk.spec.mixer in ("full", "window"):
             y, st = L.attn_forward(blk.attn, cfg, x, positions,
                                    blk.spec.window)
         elif blk.spec.mixer == "mla":
@@ -224,10 +229,10 @@ def prefill(model: Model, tokens,
             prefix_embeds=None) -> Tuple[torch.Tensor, list]:
     """Process a prompt [B, S] (after ``prefix_embeds`` [B, n, d], if
     given: then S counts the n prefix positions too).  Returns (last-token
-    logits [B, V], one decode state per layer): (k, v) of shape
-    [B, S, KV, hd] for an
-    attention layer, for the engine to write into pages; (c_kv [B, S,
-    kv_lora], k_rope [B, S, rope]) for an MLA layer, for the engine to
+    logits [B, V], one decode state per layer): (k, v) of shape [B, S, KV,
+    hd] for a full or window attention layer, for the engine to write into
+    pages or into the layer's ring; (c_kv [B, S, kv_lora], k_rope [B, S,
+    rope]) for an MLA layer, for the engine to
     write into a latent-cache slot; (conv tail {"x", "B", "C"} [B, K-1, ·],
     SSM state [B, H, P, N] f32) for a mamba layer, for the engine to write
     into a state slot."""
@@ -242,7 +247,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device="cuda") -> dict:
     """Linear staging cache for ``prefill_chunk``: ``k``/``v`` of shape
     [n_layers, batch, max_len, KV, hd] with slot == absolute position, and
-    ``pos``, the next position (one for the whole batch)."""
+    ``pos``, the next position (one for the whole batch).  Window layers
+    stage here too, at full length; the engine moves their last rows into
+    the layer's ring when the prompt is complete (``WindowCache.write``,
+    the counterpart of ``ring_convert_cache``)."""
     dev = resolve_device(device)
     shp = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shp, dtype=dtype, device=dev),
@@ -255,11 +263,11 @@ def prefill_chunk(model: Model, cache: dict, tokens):
     ``pos`` by C and returns (logits at the chunk's last token [B, V],
     cache).  A MoE FFN routes the chunk's tokens alone, as in JAX."""
     cfg = model.cfg
-    if any(blk.spec.mixer != "full" for blk in model.layers):
+    if any(blk.spec.mixer not in ("full", "window") for blk in model.layers):
         raise NotImplementedError(
-            "prefill_chunk supports full attention only: mla and mamba "
-            "states are not chunk-resumable (the engine prefills them in "
-            "one shot)")
+            "prefill_chunk supports full/window attention only: mla and "
+            "mamba states are not chunk-resumable (the engine prefills them "
+            "in one shot)")
     pos0 = cache["pos"]
     B, C = tokens.shape
     if pos0 + C > cache["k"].shape[2]:
@@ -283,10 +291,15 @@ def decode_step(model: Model, tokens, cache: dict):
     ``cache`` holds each cache the model's layers use (``layer_caches``),
     as ``PagedKVCache.decode_view`` and ``SSMStateCache.decode_view`` give
     it; the engine passes every slot at a fixed shape, row b being slot b.
-    Attention layers attend over ``k_pages``/``v_pages`` [n kv layers, P,
-    page, KV, hd] through ``block_tables`` int32 [B, n_pages] and
-    ``context_lens`` int32 [B] (counting the new token), and write the new
-    K/V into the pages.  MLA layers write the new token's latent rows into
+    Full attention layers attend over ``k_pages``/``v_pages`` [n kv
+    layers, P, page, KV, hd] through ``block_tables`` int32 [B, n_pages]
+    and ``context_lens`` int32 [B] (counting the new token), and write the
+    new K/V into the pages.  Window layers write the new K/V into their
+    ring, ``win_k``/``win_v`` [n win layers, slots * ring pages, page, KV,
+    hd], at row ``(context_lens - 1) % win_size`` of slot b's pages
+    (``win_tables`` int32 [B, ring pages]), and attend over its first
+    ``min(context_lens, win_size)`` rows, as ``WindowCache.decode_view``
+    gives them.  MLA layers write the new token's latent rows into
     ``ckv`` [n mla layers, B, S, kv_lora] and ``kr`` [n mla layers, B, S,
     rope] at ``context_lens - 1`` and attend over them, as
     ``LatentCache.decode_view`` gives them.  Mamba layers update ``conv``
@@ -301,6 +314,10 @@ def decode_step(model: Model, tokens, cache: dict):
             x = x + L.attn_decode(blk.attn, cfg, x, cache["k_pages"][i],
                                   cache["v_pages"][i], cache["block_tables"],
                                   cache["context_lens"])
+        elif kind == "win":
+            x = x + L.window_decode(blk.attn, cfg, x, cache["win_k"][i],
+                                    cache["win_v"][i], cache["win_tables"],
+                                    cache["context_lens"], cache["win_size"])
         elif kind == "mla":
             x = x + L.mla_decode(blk.attn, cfg, x, cache["ckv"][i],
                                  cache["kr"][i], cache["context_lens"])

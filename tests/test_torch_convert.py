@@ -1,6 +1,6 @@
 """The weight bridge round-trips the JAX parameter tree leaf by leaf (MLA's
-``attn`` dicts and MoE ``ffn`` dicts with their nested ``shared`` experts
-too), and the port's config copies match the JAX package's field by
+and window layers' ``attn`` dicts and MoE ``ffn`` dicts with their nested
+``shared`` experts too), and the port's config copies match the JAX package's field by
 field."""
 import dataclasses
 
@@ -19,7 +19,7 @@ from repro_torch.models.convert import from_jax_params, to_numpy_tree  # noqa: E
 
 ARCHS = ["llama3.1-8b", "qwen2.5-14b", "mamba2-1.3b", "minicpm-2b", "qwen3-32b",
          "internvl2-1b", "musicgen-medium", "deepseek-v2-lite-16b",
-         "jamba-v0.1-52b"]
+         "jamba-v0.1-52b", "gemma3-27b", "gemma3-12b", "mixtral-8x22b"]
 
 
 def _leaves(tree, prefix=""):
@@ -42,7 +42,9 @@ def test_from_jax_then_to_numpy_is_identity(arch, dtype):
                           jax_init_params(jcfg, jax.random.PRNGKey(1), dtype))
     model = from_jax_params(params, tcfg, device="cpu")
     # two layers per stage: 2 for the one-layer patterns, deepseek's dense
-    # first stage of 1 then 2 MoE layers, jamba's period of 8 twice
+    # first stage of 1 then 2 MoE layers, jamba's period of 8 twice,
+    # gemma3's 5:1 period twice (gemma3-27b: then its 2 trailing window
+    # layers once)
     assert len(model.layers) == tcfg.num_layers == sum(
         len(st.pattern) * min(st.repeat, 2) for st in get_config(arch).stages)
     want = dict(_leaves(params))

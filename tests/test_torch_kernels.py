@@ -190,10 +190,12 @@ def test_paged_partition_covers_the_table(B, KV, n_pages, page, sms):
 
 # Which group of a pass-1 block keeps the softmax of the token at position
 # pos (splits start at multiples of 64): bf16, warp j of 4 takes 16
-# consecutive tokens of each 64-token tile; fp32, half-warp j of 8 takes the
-# tokens pos % 8 == j of each 32-token sub-tile.
+# consecutive tokens of each 64-token tile; fp32 up to hd 128, half-warp j
+# of 8 takes the tokens pos % 8 == j of each 32-token tile; fp32 at hd 256,
+# warp j of 4 the tokens pos % 4 == j of each 16-token tile.
 GROUPS = {"bfloat16": (4, lambda pos: (pos % 64) // 16),
-          "float32": (8, lambda pos: pos % 8)}
+          "float32": (8, lambda pos: pos % 8),
+          "float32-hd256": (4, lambda pos: pos % 4)}
 
 
 def _split_partials(q, kp, vp, bt, ctx, split_tokens, n_split, groups):

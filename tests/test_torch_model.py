@@ -137,12 +137,20 @@ def test_decode_steps_over_paged_cache(bridged):
 
 
 def test_unported_mixers_raise():
+    """Every mixer of the JAX package is ported (window layers since the
+    window slice); what stays unported raises: an attention softcap,
+    which no config sets, a mixer that neither package knows and an arch
+    id that neither registers."""
     import dataclasses
-    from repro_torch.configs.base import uniform_stage
+    from repro_torch.configs.base import BlockSpec
     cfg = reduce_config(get_config("llama3.1-8b"))
-    win = dataclasses.replace(cfg, stages=uniform_stage(1, "window",
-                                                        window=8))
-    with pytest.raises(NotImplementedError):
-        TM.init_params(win, device="cpu")
+    assert TM.MIXERS == ("full", "window", "mla", "mamba")
+    capped = dataclasses.replace(cfg, logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        TM.init_params(capped, device="cpu")
+    with pytest.raises(ValueError, match="unknown mixer"):
+        BlockSpec("linear", "dense")
     with pytest.raises(KeyError, match="supported"):
-        get_config("mixtral-8x22b")
+        get_config("gemma2-9b")
+    for arch in ("gemma3-27b", "gemma3-12b", "mixtral-8x22b"):
+        TM.check_supported(get_config(arch))

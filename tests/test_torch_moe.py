@@ -144,7 +144,8 @@ def test_capacity_matches_jax(T, K, E, cf):
     assert TL.moe_capacity(T, K, E, cf) == JL.moe_capacity(T, K, E, cf)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "jamba-v0.1-52b",
+                                  "mixtral-8x22b"])
 def test_free_decode_rows_cannot_take_a_live_rows_place(arch):
     """Decode routes every slot (8 at the full size).  There C = 16 >= T,
     and each token picks K distinct experts, so nothing drops: whatever
