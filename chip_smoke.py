@@ -142,12 +142,43 @@ JAX.  Phases, each printing one JSON line:
    gateway replicas over views synced every second, and the bandit router
    warm-started from a recorded trace, its doubly-robust estimate beside
    its what-if replay.  Every request of each run must be finished, shed,
-   throttled, cascaded or lost.
+   throttled, cascaded or lost;
+6. train: training through ``repro_torch.training``, which runs no kernel
+   (the reference trains through plain attention and the plain scan; the
+   kernel wrappers refuse inputs that require grad).  (a) ``train_parity``:
+   one ``make_train_step`` of reduced llama3.1-8b, mamba2-1.3b,
+   deepseek-v2-lite-16b, gemma3-27b and jamba-v0.1-52b on the card and on
+   the CPU from the same weights and ``SyntheticLM`` batch, in float32
+   (the same function: loss within 1e-4 relative, every leaf's gradient
+   at cosine >= 0.9999, its norm within 0.1%) and in bf16 as the
+   reference casts (loss within 1e-2 relative; every leaf's gradient at
+   cosine >= 0.99 with its norm within 2%, or, where the leaf's own bf16
+   rounding, the CPU's bf16 gradient against its float32 one, is already
+   past that, within twice that gap: ``1 - cosine`` at most twice the
+   floor's, the norm difference at most twice the floor's relative
+   distance; the three nearest their limits are listed with both
+   readings).  (b) ``train_full_width``: minicpm-2b whole (40
+   layers, 2,724,878,592 parameters, WSD) and mamba2-1.3b whole, fp32
+   masters drawn on the card, ``make_grad_accum_step`` at accum 4 (2 for
+   mamba) x micro-batch 2 x 4096 tokens (``cut``: train_4k's global batch
+   of 256 sequences cut to 8 or 4), one untimed step and three timed: step
+   seconds, tokens/s, ``mfu`` (6 x parameters x tokens over step seconds
+   x 989e12; attention flops left out), peak memory, losses, grad norm,
+   lr; after the first step every leaf must hold a finite, non-zero
+   gradient, and no kernel may have launched.  (c) ``train_eval``: the
+   trained minicpm-2b in bf16 on a held-out 1 x 2048 batch: the mean NLL
+   through the serving forward (flash) and the plain training forward
+   within 1e-2, flash launched once per layer (40; the
+   ``launches_by_path`` entry ``minicpm-2b train eval``).  (d)
+   ``train_launcher``: ``launch.train.main`` for reduced llama3.1-8b, 100
+   steps, checkpoints under the checkout's ``build/``: the final loss
+   below ln 512, the last checkpoint restoring with every leaf finite.
 
 Then the ``kernels`` line (``smoke_s``: the run's seconds so far, the
 build included; ``launches``: the count from the phase-4 run of
 llama3.1-8b or mamba2-1.3b, whichever runs each kernel; ``launches_by_path``:
-each path's count, every phase-4 model's and the phase-5 profile's;
+each path's count, every phase-4 model's, the phase-5 profile's and
+phase 6's evaluation;
 ``at_model_rows``: the kernel's timed rows at the other served models'
 shapes), the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -155,6 +186,7 @@ non-zero without that last line, as does a machine without a CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -1127,6 +1159,323 @@ def goodput_policies(pred, prof, n: int = 400):
                              f"a failed run in {bad}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training through the plain path (no kernel), and the launcher
+# ---------------------------------------------------------------------------
+
+TRAIN_PARITY_ARCHS = ("llama3.1-8b", "mamba2-1.3b", "deepseek-v2-lite-16b",
+                      "gemma3-27b", "jamba-v0.1-52b")
+TRAIN_TOL = {"loss_rel": 1e-2, "cosine": 0.99, "norm_rel": 2e-2,
+             "eval_nll_abs": 1e-2}
+TRAIN_TOL_F32 = {"loss_rel": 1e-4, "cosine": 0.9999, "norm_rel": 1e-3}
+# (arch, grad-accumulation micro-batches): micro-batch 2 x 4096 tokens
+TRAIN_FULL = (("minicpm-2b", 4), ("mamba2-1.3b", 2))
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_TIMED = 2, 4096, 3
+
+
+def _free_card():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _grad_gap(a, b):
+    """(cosine, relative norm difference, relative distance ``|a - b|``) of
+    two gradients, both relative to the larger norm; (1, 0, 0) where both
+    are zero."""
+    na, nb = a.norm().item(), b.norm().item()
+    if na == nb == 0.0:
+        return 1.0, 0.0, 0.0
+    cos = (a.flatten() @ b.flatten()).item() / (na * nb) if na * nb else 0.0
+    return cos, abs(nb - na) / max(na, nb), (a - b).norm().item() / max(na, nb)
+
+
+def _limit(tol, floor=None):
+    """(least cosine, largest relative norm difference) a leaf's card-vs-CPU
+    gradient gap is held to: ``tol``'s bound, or, where ``floor`` (the
+    leaf's CPU bf16 gradient against its CPU float32 one) is already past
+    the bound on either measure, the looser of the bound and twice the
+    floor's gap: ``1 - cosine`` doubled, and the norm difference held to
+    twice the floor's relative distance (one draw of bf16 rounding can
+    leave the norm nearly as it was while moving the gradient far; the
+    distance bounds the norm difference of any draw of its size)."""
+    cos, norm = tol["cosine"], tol["norm_rel"]
+    if floor is not None and (floor[0] < cos or floor[1] > norm):
+        cos = min(cos, 1.0 - 2.0 * (1.0 - floor[0]))
+        norm = max(norm, 2.0 * floor[2])
+    return cos, norm
+
+
+def _within(gap, limit) -> bool:
+    return gap[0] >= limit[0] and gap[1] <= limit[1]
+
+
+def train_parity(arch: str):
+    """(a) One ``make_train_step`` of reduced ``arch`` (phase 3's sizes) on
+    the card and on the CPU from the same weights and a ``SyntheticLM``
+    batch (2 x 64), in float32 (``cast_half`` patched to the identity,
+    TF32 off) and in bf16 as the reference casts.  float32: the same
+    function, the loss within 1e-4 relative, every leaf's gradient at
+    cosine >= 0.9999 with its norm within 0.1%.  bf16: the loss within
+    1e-2 relative, each leaf's gradient at cosine >= 0.99 with its norm
+    within 2%, where bf16's own rounding allows it: a leaf whose CPU bf16
+    gradient is already further than that from its CPU float32 gradient
+    (an MoE or scan layer's at cancellation-heavy init) is held to twice
+    its own gap (``_limit``), and the three nearest their limit are listed
+    with both readings."""
+    from unittest import mock
+    import torch
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.models.model import init_params
+    from repro_torch.training import train_step
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    _free_card()
+    cfg = reduced_config(arch)
+    base = init_params(cfg, torch.Generator().manual_seed(3),
+                       dtype=torch.float32, device="cpu")
+    batch = [torch.from_numpy(a) for a in
+             SyntheticLM(cfg.vocab_size, seed=0).batch(0, 2, 64)]
+    step = train_step.make_train_step(
+        cfg, AdamWConfig(lr=1e-3, total_steps=10), ce_chunk=32)
+    loss, grads = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        for dev in ("cpu", "cuda"):
+            model = copy.deepcopy(base).to(dev)
+            opt = init_opt_state(dict(model.named_parameters()))
+            with mock.patch.object(train_step, "cast_half",
+                                   lambda p, dtype=None: p) \
+                    if dtype == "float32" else contextlib.nullcontext():
+                m = step(model, opt, *(t.to(dev) for t in batch))[2]
+            loss[dtype, dev] = float(m["loss"])
+            grads[dtype, dev] = {n: p.grad.double().cpu()
+                                 for n, p in model.named_parameters()}
+            del model, opt
+    res = {"phase": "train_parity", "config": cfg.name,
+           "leaves": len(grads["float32", "cpu"]),
+           "tol": {"bfloat16": TRAIN_TOL, "float32": TRAIN_TOL_F32}}
+    bad = []
+    for dtype, tol in (("float32", TRAIN_TOL_F32), ("bfloat16", TRAIN_TOL)):
+        gaps = {n: _grad_gap(grads[dtype, "cpu"][n], grads[dtype, "cuda"][n])
+                for n in grads[dtype, "cpu"]}
+        floor = {n: _grad_gap(grads["float32", "cpu"][n],
+                              grads["bfloat16", "cpu"][n]) for n in gaps}
+        limit = {n: _limit(tol, floor[n] if dtype == "bfloat16" else None)
+                 for n in gaps}
+        noisy = [n for n in gaps if limit[n] != _limit(tol)]
+        rel = abs(loss[dtype, "cuda"] - loss[dtype, "cpu"]) \
+            / abs(loss[dtype, "cpu"])
+        res[dtype] = {
+            "loss_cpu": loss[dtype, "cpu"], "loss_cuda": loss[dtype, "cuda"],
+            "loss_rel_err": rel,
+            "worst_grad_cosine": min(gaps[n][0] for n in gaps),
+            "worst_grad_norm_rel": max(gaps[n][1] for n in gaps),
+            "leaves_at_the_bound": len(gaps) - len(noisy)}
+        if noisy:      # the count, and the three nearest their own limit
+            def use(n):
+                return max((1.0 - gaps[n][0]) / (1.0 - limit[n][0]),
+                           gaps[n][1] / limit[n][1])
+            res[dtype]["held_to_twice_their_bf16_floor"] = {
+                "leaves": len(noisy), "worst_share_of_limit": max(
+                    use(n) for n in noisy),
+                "nearest": {n: {"card_vs_cpu": gaps[n],
+                                "cpu_bf16_vs_f32": floor[n],
+                                "limit": limit[n]}
+                            for n in sorted(noisy, key=use)[-3:]}}
+        bad += [f"{dtype} loss"] if rel > tol["loss_rel"] else []
+        bad += [f"{dtype} {n}" for n in gaps if not _within(gaps[n],
+                                                            limit[n])]
+    emit(res)
+    if bad:
+        raise AssertionError(f"training on the card disagrees with the CPU: "
+                             f"{res}, failing {bad}")
+
+
+def _mean_nll(model, tokens, labels, mask, train: bool):
+    import torch
+    from repro_torch.models.model import lm_head_weight, model_forward
+    from repro_torch.training.loss import chunked_cross_entropy
+    with torch.no_grad():
+        hidden, _ = model_forward(model, tokens, train=train, remat=False)
+        return float(chunked_cross_entropy(hidden, lm_head_weight(model),
+                                           labels, mask)[0])
+
+
+def train_full_width(arch: str, accum: int, card: str):
+    """(b) ``arch`` whole at full width: fp32 masters drawn on the card from
+    seed 0, AdamW (lr 3e-4, 100 total steps, 10 warmup, WSD where the
+    config prescribes it), ``make_grad_accum_step`` over ``accum``
+    micro-batches of 2 x 4096 tokens; one untimed step, then three timed.
+    After the first step every leaf must hold a finite, non-zero
+    gradient.  Returns the model for (c)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_grad_accum_step
+    _free_card()
+    cfg = get_config(arch)
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+    t0 = time.perf_counter()
+    batches = [[torch.from_numpy(a).reshape(accum, TRAIN_MICRO, TRAIN_SEQ)
+                .to("cuda") for a in data.batch(i, accum * TRAIN_MICRO,
+                                                TRAIN_SEQ)]
+               for i in range(1 + TRAIN_TIMED)]
+    data_s = time.perf_counter() - t0
+    model = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    opt = init_opt_state(dict(model.named_parameters()))
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=100,
+                       schedule=("wsd" if cfg.lr_schedule == "wsd"
+                                 else "cosine"))
+    step = make_grad_accum_step(cfg, ocfg, accum)
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
+    secs, losses, gnorms, lrs, lacking = [], [], [], [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(model, opt, *batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        lrs.append(m["lr"])
+        if i == 0:
+            lacking = [n for n, p in model.named_parameters()
+                       if p.grad is None or not bool(p.grad.any())
+                       or not bool(torch.isfinite(p.grad).all())]
+    timed = secs[1:]
+    tokens = accum * TRAIN_MICRO * TRAIN_SEQ
+    step_s = statistics.median(timed)
+    n = cfg.param_count()
+    full = get_config("llama3.1-8b").param_count()
+    res = {"phase": "train_full_width", "config": cfg.name, "n_params": n,
+           "num_layers": cfg.num_layers, "schedule": ocfg.schedule,
+           "masters": "float32", "compute": "bfloat16 (cast_half)",
+           "accum": accum, "micro_batch": TRAIN_MICRO, "seq": TRAIN_SEQ,
+           "tokens_per_step": tokens, "first_step_s": secs[0],
+           "step_s": timed, "median_step_s": step_s,
+           "tokens_per_s": tokens / step_s,
+           "mfu": 6 * n * tokens / (step_s * PEAK_FLOPS["bfloat16"]),
+           "mfu_formula": "6 * n_params * tokens / (step_s * 989e12); "
+                          "attention flops left out",
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": losses, "grad_norm": gnorms, "lr": lrs,
+           "leaves": sum(1 for _ in model.parameters()),
+           "leaves_zero_or_nonfinite_grad": len(lacking),
+           "kernel_launches": {k: f.launches for k, f in w.items()},
+           "data_s": data_s, "nvidia_smi": card,
+           "cut": f"batch: {tokens} tokens a step, train_4k's global batch "
+                  f"cut from 256 to {accum * TRAIN_MICRO} sequences of "
+                  f"{TRAIN_SEQ}; 4 steps"}
+    res["why_not_llama3.1-8b"] = (f"{full:,} parameters x 16 B (fp32 "
+                                  f"masters, grads, m, v) exceed 80 GB")
+    emit(res)
+    if not (lacking == [] and all(map(math.isfinite, losses + gnorms))
+            and not any(res["kernel_launches"].values())):
+        raise AssertionError(f"full-width training failed: {res}, leaves "
+                             f"lacking a gradient {lacking}")
+    return model, opt
+
+
+def train_eval(model, opt):
+    """(c) The trained weights cast to bf16 on a held-out batch (1 x 2048):
+    the mean NLL through the serving forward (flash attention) and the
+    plain training forward, under ``no_grad``, within 1e-2; the flash
+    kernel launched once per attention layer.  Returns the launches."""
+    import torch
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.models.model import layer_caches
+    cfg = model.cfg
+    for p in model.parameters():
+        p.grad = None
+    opt.clear()
+    _free_card()
+    model.to(torch.bfloat16)
+    toks, labels, mask = (torch.from_numpy(a).to("cuda") for a in
+                          SyntheticLM(cfg.vocab_size, seed=1).batch(0, 1,
+                                                                    2048))
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
+    serve = _mean_nll(model, toks, labels, mask, train=False)
+    launches = {n: f.launches for n, f in w.items()}
+    plain = _mean_nll(model, toks, labels, mask, train=True)
+    attn = sum(kind in ("kv", "win") for kind, _ in layer_caches(cfg))
+    res = {"phase": "train_eval", "config": cfg.name, "dtype": "bfloat16",
+           "tokens": 2048, "nll_serve_flash": serve, "nll_train_plain": plain,
+           "abs_err": abs(serve - plain), "tol": TRAIN_TOL["eval_nll_abs"],
+           "launches": launches, "attention_layers": attn}
+    emit(res)
+    if not (res["abs_err"] <= TRAIN_TOL["eval_nll_abs"]
+            and launches["flash_attention"] == attn
+            and launches["ssd"] == launches["paged_attention"] == 0
+            and math.isfinite(serve)):
+        raise AssertionError(f"serving and training forwards disagree on "
+                             f"the trained weights: {res}")
+    return launches
+
+
+def train_launcher():
+    """(d) ``python -m repro_torch.launch.train --arch llama3.1-8b --reduced
+    --steps 100 --ckpt-dir DIR`` (its ``main``, in this process), DIR under
+    the checkout's ``build/``: the final loss below ln 512, and the last
+    checkpoint restoring with every leaf finite."""
+    import io
+    import shutil
+    import numpy as np
+    from repro_torch.launch import train
+    from repro_torch.training.checkpoint import latest_step, restore_checkpoint
+    _free_card()
+    ckpt = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = train.main(["--arch", "llama3.1-8b", "--reduced", "--steps",
+                             "100", "--ckpt-dir", str(ckpt)])
+    seconds = time.perf_counter() - t0
+    last = latest_step(ckpt)
+
+    def flat(node):
+        if isinstance(node, dict):
+            node = list(node.values())
+        if isinstance(node, list):
+            return [a for v in node for a in flat(v)]
+        return [np.asarray(node)]
+
+    leaves = flat(restore_checkpoint(ckpt, last))
+    res = {"phase": "train_launcher", "argv": "--arch llama3.1-8b --reduced "
+           "--steps 100", "seconds": seconds, "first_loss": losses[0],
+           "final_loss": losses[-1], "uniform_entropy": math.log(512),
+           "last_checkpoint": last, "leaves": len(leaves),
+           "all_finite": all(np.isfinite(a).all() for a in leaves),
+           "last_line": out.getvalue().strip().splitlines()[-1]}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    emit(res)
+    if not (res["final_loss"] < math.log(512) and last == 100
+            and res["all_finite"]):
+        raise AssertionError(f"the training launcher failed: {res}")
+
+
+def train_phase(card: str) -> dict:
+    """Phase 6: (a) to (d).  Returns the flash launches of (c)."""
+    for arch in TRAIN_PARITY_ARCHS:
+        train_parity(arch)
+    evals = None
+    for arch, accum in TRAIN_FULL:
+        model, opt = train_full_width(arch, accum, card)
+        if evals is None:
+            evals = train_eval(model, opt)
+        del model, opt
+    train_launcher()
+    _free_card()
+    return evals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1168,6 +1517,9 @@ def main() -> int:
     pred = goodput_predictor()
     goodput_runs(pred, prof)
     goodput_policies(pred, prof)
+    t6 = time.perf_counter()
+    by_path["minicpm-2b train eval"] = train_phase(card)
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t6})
 
     def line(name, route, source, replaces, row):
         at_models = {r["model"]: {k: r[k] for k in ("ms", "bound_ms",

@@ -1,1 +1,2 @@
-"""Prompt featurisation for the length predictor, copied from ``repro.data``."""
+"""Prompt featurisation for the length predictor and the synthetic LM data
+of the trainer, copied from ``repro.data``."""

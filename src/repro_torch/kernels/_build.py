@@ -132,3 +132,16 @@ def check_aligned(*tensors) -> None:
         if t.data_ptr() % 16 or (t.stride(0) * t.element_size()) % 16:
             raise ValueError("CUDA kernel inputs must be 16-byte aligned, "
                              "with a 16-byte multiple batch stride")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """The kernels run forward only: their output carries no autograd
+    history.  Raise where grad mode is on and an input requires grad, on
+    every device (the CPU's plain version is differentiable, but a caller
+    that relied on it would train silently wrong on the card)."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} runs forward only and its output has no gradient: call "
+            f"it under torch.no_grad(), or train through the plain path "
+            f"(model_forward(..., train=True))")

@@ -9,6 +9,8 @@ tensor cores (wgmma, TMA), everything else on the fp32 FMA kernel,
 gemma3-12b's hd 256 included (bf16 or fp32).  Head dims: multiples of 16
 up to 128, and 256.
 ``flash_attention.launches`` counts kernel launches.
+Forward only: with grad mode on, an input that requires grad raises
+(``_build.refuse_grad``), on the CPU too.
 """
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     stride is free, so k/v may be a prefix ``buf[:, :n]`` of a longer
     buffer."""
     _check(q, k, v, window, softcap)
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)

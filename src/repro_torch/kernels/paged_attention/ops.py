@@ -12,6 +12,8 @@ kernel, one per call whatever the number of passes.  Head dims: multiples
 of 16 up to 128, and 256 (gemma3-12b): pass 1 runs bf16 on the tensor
 cores (mma.sync) and fp32 on the CUDA cores at every one of them.  The
 engine also calls it over window layers' per-slot rings.
+Forward only: with grad mode on, an input that requires grad raises
+(``_build.refuse_grad``), on the CPU too.
 """
 from __future__ import annotations
 
@@ -89,6 +91,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     [B, n_pages]; context_lens int32 [B] -> [B, H, hd] in q's dtype.
     A sequence with context length 0 gets zeros."""
     _check(q, k_pages, v_pages, block_tables, context_lens)
+    _build.refuse_grad("paged_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    context_lens)

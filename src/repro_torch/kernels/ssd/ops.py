@@ -5,6 +5,8 @@ Counterpart of ``repro/kernels/ssd/ops.py`` (the jit wrapper of
 a CPU tensor takes the plain version in ``ref.py``.  The kernel runs in
 three passes over fp32 workspaces that the wrapper allocates
 (:func:`workspace_shapes`); ``ssd.launches`` counts calls, one per call.
+Forward only: with grad mode on, an input that requires grad raises
+(``_build.refuse_grad``), on the CPU too.
 """
 from __future__ import annotations
 
@@ -76,6 +78,7 @@ def ssd(x, dt, A, B_, C, *, chunk: int = 256):
     B_/C: [B, L, G, N]; L a multiple of ``chunk``.  Returns (y [B, L, H, P]
     f32, final state [B, H, P, N] f32)."""
     _check(x, dt, A, B_, C, chunk)
+    _build.refuse_grad("ssd", x, dt, A, B_, C)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, B_, C, chunk)
     if x.device.type != "cuda":

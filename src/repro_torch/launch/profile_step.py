@@ -2,7 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step \\
       [--arch llama3.1-8b] [--periods N] [--batch 8] [--prompt 1024] \\
-      [--steps 5] [--out build/profile_step]
+      [--steps 5] [--out build/profile_step] [--train]
 
 One engine (bf16, random weights from a seed; ``--arch`` takes every id
 of ``configs.ALL_ARCHS``, gemma3-27b's window layers included;
@@ -19,6 +19,12 @@ device ms per step by kernel name, largest first, and, for each of the
 port's own CUDA kernels that ran (``kernels/*/csrc``: names in the
 top-level ``(anonymous namespace)`` of those sources), its device ms and launches per
 step.  The traces go to ``--out``.
+
+With ``--train`` it traces training instead: the config whole, fp32
+masters drawn from seed 0, ``--steps`` ``make_train_step`` calls on one
+``SyntheticLM`` batch of ``--batch`` x 4096 tokens (a micro-batch of the
+grad-accumulation step at train_4k's length), after one untimed step; its
+line adds the step's device ms by kind (GEMMs, softmax, the rest).
 """
 from __future__ import annotations
 
@@ -104,6 +110,56 @@ def _traced(phase: str, fn, steps: int, out: Path) -> dict:
     return _summary(phase, _kernels(path), wall, steps)
 
 
+TRAIN_SEQ = 4096
+
+
+def _train_lines(cfg, args, dev, out: Path) -> list:
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    model = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    opt = init_opt_state(dict(model.named_parameters()))
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=10,
+                                            total_steps=100))
+    batch = [torch.from_numpy(a).to(dev) for a in
+             SyntheticLM(cfg.vocab_size, seed=0).batch(0, args.batch,
+                                                       TRAIN_SEQ)]
+    step(model, opt, *batch)             # warm-up
+    line = _traced("train_step", lambda: step(model, opt, *batch),
+                   args.steps, out)
+    kinds = defaultdict(float)
+    for name, ms in _kernels_by_kind(out / "trace_train_step.json"):
+        kinds[name] += ms / args.steps
+    line.update(device_ms_by_kind=dict(kinds), seq=TRAIN_SEQ,
+                tokens_per_step=args.batch * TRAIN_SEQ,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return [line]
+
+
+# gathers, scatters and indexed writes (``index_put_``, the embedding's
+# backward); PyTorch's ``elementwise_kernel_with_index`` is none of them
+_INDEX_KERNELS = ("scatter", "gather", "index_put", "indexing",
+                  "index_elementwise", "indexselect", "embedding")
+
+
+def _kernels_by_kind(trace_path: Path):
+    """(kind, device ms) of every kernel: "gemm" (cuBLAS/CUTLASS matrix
+    products), "softmax", "reduce", "index" (gathers, scatters and indexed
+    writes, such as the embedding's backward), "copy" (copies, casts and
+    concatenations: PyTorch's ``CatArrayBatchedCopy``) or
+    "elementwise/other"."""
+    for name, _, dur in _kernels(trace_path):
+        low = name.lower()
+        kind = ("gemm" if any(k in low for k in ("gemm", "cutlass", "xmma",
+                                                  "sm90_", "nvjet"))
+                else "softmax" if "softmax" in low
+                else "reduce" if "reduce" in low
+                else "index" if any(k in low for k in _INDEX_KERNELS)
+                else "copy" if "copy" in low
+                else "elementwise/other")
+        yield kind, dur / 1e3
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.1-8b")
@@ -112,6 +168,7 @@ def main(argv=None):
     ap.add_argument("--prompt", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="build/profile_step")
+    ap.add_argument("--train", action="store_true")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     out = Path(args.out)
@@ -119,6 +176,13 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.periods is not None:
         cfg = cut_periods(cfg, args.periods)
+    if args.train:
+        lines = _train_lines(cfg, args, dev, out)
+        for ln in lines:
+            ln.update(batch=args.batch, arch=args.arch,
+                      num_layers=cfg.num_layers)
+            print(json.dumps(ln), flush=True)
+        return lines
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     eng = InferenceEngine(cfg, params, max_batch=args.batch, max_len=4096,
                           device=dev)

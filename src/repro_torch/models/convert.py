@@ -14,8 +14,16 @@ keep their dtype: a bf16 tree's ``A_log``, ``D``, ``dt_bias`` and MoE
 ``router`` stay float32.  The
 caller hands the tree over as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+
+The optimizer state crosses the same way: ``m`` and ``v`` (float32, keyed
+like ``named_parameters``) map to and from trees of the parameters'
+layout by the code that maps the parameters (:func:`jax_location`), and
+``step`` (a Python int in the port) becomes a 0-d int32, as
+``repro/training/optimizer.py:51-57`` holds it.
 """
 from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,16 +59,6 @@ def _flat(part: dict) -> dict:
     return out
 
 
-def _nested(part: dict) -> dict:
-    """Inverse of :func:`_flat`."""
-    out = {k: a for k, a in part.items() if not k.startswith(SHARED)}
-    shared = {k[len(SHARED):]: a for k, a in part.items()
-              if k.startswith(SHARED)}
-    if shared:
-        out["shared"] = shared
-    return out
-
-
 def from_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> Model:
     """The port's ``Model`` holding the weights of a JAX param tree."""
     dev = resolve_device(device)
@@ -80,22 +78,67 @@ def from_jax_params(tree, cfg: ModelConfig, *, device="cuda") -> Model:
     return Model(cfg, frozen(top), blocks)
 
 
-def to_numpy_tree(model: Model) -> dict:
-    """Inverse of :func:`from_jax_params`: the JAX-layout tree as numpy."""
-    out = {k: _to_numpy(v) for k, v in model.top.items()}
-    stages, i = [], 0
-    for stage in model.cfg.stages:
-        n = len(stage.pattern)
-        blocks = model.layers[i:i + stage.num_layers]
-        i += stage.num_layers
-        sp = {}
-        for pi in range(n):
-            reps = [blocks[r * n + pi] for r in range(stage.repeat)]
-            sp[f"blk{pi}"] = {
-                part: _nested({k: np.stack([_to_numpy(getattr(b, part)[k])
-                                            for b in reps])
-                               for k in getattr(reps[0], part)})
-                for part in reps[0].parts}
-        stages.append(sp)
-    out["stages"] = stages
+def jax_location(cfg: ModelConfig, name: str) -> Tuple[tuple, Optional[int]]:
+    """Where parameter ``name`` (as ``Model.named_parameters`` names it)
+    sits in the JAX tree: the path of its leaf, and the index along the
+    leaf's leading repeat axis (None for a top-level leaf)."""
+    parts = name.split(".")
+    if parts[0] == "top":
+        return (parts[1],), None
+    i, part, key = int(parts[1]), parts[2], parts[3]
+    for si, stage in enumerate(cfg.stages):
+        if i < stage.num_layers:
+            r, pi = divmod(i, len(stage.pattern))
+            leaf = ("shared", key[len(SHARED):]) if key.startswith(SHARED) \
+                else (key,)
+            return ("stages", si, f"blk{pi}", part) + leaf, r
+        i -= stage.num_layers
+    raise KeyError(f"{name}: no layer {parts[1]} in {cfg.name}")
+
+
+def to_numpy_tree(model: Model,
+                  tensors: Optional[Dict[str, torch.Tensor]] = None) -> dict:
+    """Inverse of :func:`from_jax_params`: the JAX-layout tree as numpy, of
+    the model's parameters or, given ``tensors`` keyed like
+    ``named_parameters`` (AdamW's ``m`` or ``v``), of those."""
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    out: dict = {"stages": [{} for _ in model.cfg.stages]}
+    rows: Dict[tuple, list] = {}
+    for name, _ in model.named_parameters():
+        path, r = jax_location(model.cfg, name)
+        if r is None:
+            out[path[0]] = _to_numpy(tensors[name])
+        else:
+            rows.setdefault(path, []).append(_to_numpy(tensors[name]))
+    for path, leaves in rows.items():
+        node = out
+        for k in path[:-1]:
+            node = node[k] if isinstance(k, int) else node.setdefault(k, {})
+        node[path[-1]] = np.stack(leaves)
+    return out
+
+
+def _leaf(tree, path: tuple, r: Optional[int]):
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree) if r is None else np.asarray(tree)[r]
+
+
+def opt_state_to_jax(model: Model, opt_state: dict) -> dict:
+    """The port's AdamW state as the JAX package holds it."""
+    return {"m": to_numpy_tree(model, opt_state["m"]),
+            "v": to_numpy_tree(model, opt_state["v"]),
+            "step": np.asarray(opt_state["step"], np.int32)}
+
+
+def opt_state_from_jax(tree, model: Model, *, device="cuda") -> dict:
+    """Inverse of :func:`opt_state_to_jax`: ``m`` and ``v`` as float32
+    tensors keyed like ``model.named_parameters()`` on ``device``."""
+    dev = resolve_device(device)
+    names = [n for n, _ in model.named_parameters()]
+    out = {k: {n: _to_tensor(_leaf(tree[k], *jax_location(model.cfg, n)),
+                             dev).float() for n in names}
+           for k in ("m", "v")}
+    out["step"] = int(np.asarray(tree["step"]))
     return out

@@ -18,11 +18,16 @@ Attention goes through the kernel wrappers: ``attn_forward`` and
 through ``paged_attention`` over a window layer's per-slot ring, laid out
 as whole pages of its slot (the JAX layer's ring with a masked
 ``_sdpa``).  ``_sdpa`` stays as the plain reference the tests compare the
-layers against.  MLA and the MoE FFN run no kernel in
+layers against.  Training goes around the kernels, which run forward
+only and refuse inputs that require grad: ``attn_forward(..., train=True)``
+attends through ``_sdpa_chunked`` (:135-161), plain einsums over 512-row
+query chunks, each rematerialised, as the reference trains (:182).  MLA
+and the MoE FFN run no kernel in
 the JAX package and none here: they are plain torch ops, and their decode
 paths read nothing on the host, so the engine's decode graph captures
 them.  Parameters are ``nn.ParameterDict``s
-keyed like the JAX pytree, frozen (no gradients).
+keyed like the JAX pytree, frozen (no gradients) until a trainer turns
+their gradients on (``training/train_step.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -134,14 +140,46 @@ def causal_mask(Lq: int, Lk: int, window: Optional[int] = None,
     return m[None]
 
 
-def attn_forward(p, cfg: ModelConfig, x, positions, window: Optional[int]):
-    """Full-sequence causal attention (prefill) through the flash kernel.
+def _sdpa_rows(q, k, v, off: int, window: Optional[int],
+               softcap: Optional[float]):
+    """``_sdpa`` of the query rows ``off .. off + len(q)`` over every key."""
+    mask = causal_mask(q.shape[1], k.shape[1], window, off, q.device)
+    return _sdpa(q, k, v, mask, softcap)
+
+
+def _sdpa_chunked(q, k, v, window: Optional[int], softcap: Optional[float],
+                  chunk: int = 512):
+    """Causal ``_sdpa`` over query chunks, so scores take [B, H, chunk, Lk]
+    at most; each chunk's body is rematerialised, so the backward pass
+    recomputes its scores instead of holding every chunk's probabilities.
+    Plain and differentiable: the training path.  Above ``chunk`` rows Lq
+    must be a multiple of it, as the reference asserts."""
+    Lq = q.shape[1]
+    if Lq <= chunk:
+        return _sdpa(q, k, v, causal_mask(Lq, Lq, window, device=q.device),
+                     softcap)
+    if Lq % chunk:
+        raise ValueError(f"{Lq} query rows are not a multiple of the "
+                         f"{chunk}-row chunk")
+    outs = [checkpoint(_sdpa_rows, q[:, off:off + chunk], k, v, off, window,
+                       softcap, use_reentrant=False)
+            for off in range(0, Lq, chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def attn_forward(p, cfg: ModelConfig, x, positions, window: Optional[int],
+                 train: bool = False):
+    """Full-sequence causal attention: through the flash kernel (prefill),
+    or with ``train`` through the plain, differentiable ``_sdpa_chunked``.
     Returns (y, (k, v)) so prefill can fill the cache."""
     B, L, _ = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(p, cfg, h, positions)
-    y = flash_attention(q, k, v, causal=True, window=window,
-                        softcap=cfg.logit_softcap)
+    if train:
+        y = _sdpa_chunked(q, k, v, window, cfg.logit_softcap)
+    else:
+        y = flash_attention(q, k, v, causal=True, window=window,
+                            softcap=cfg.logit_softcap)
     return y.reshape(B, L, -1) @ p["wo"], (k, v)
 
 

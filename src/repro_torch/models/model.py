@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
 ``padded_vocab`` (:45-50), ``init_params`` (:53-80), ``embed_tokens``
-(:177-184), ``model_forward`` (:187-196), ``logits_fn`` (:205-207),
-``prefill`` (:210-226),
+(:177-184), ``model_forward`` (:187-196), ``lm_head_weight`` (:199-202),
+``logits_fn`` (:205-207), ``prefill`` (:210-226),
 ``init_cache(ring=False)`` (:229-270), ``prefill_chunk`` (:273-344) and
 ``decode_step`` (:373-438), with the blocks of ``_apply_block``
 (:87-122).  Differences:
@@ -23,7 +23,16 @@ Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
   rows and the mamba states in place, every slot at once (the engine runs
   it at one fixed shape and, on the card, replays it from a CUDA graph);
 * ``prefill_chunk`` takes only real tokens (no padding to a fixed shape)
-  and one ``pos`` for the batch.
+  and one ``pos`` for the batch;
+* ``model_forward(..., train=True)`` is the reference's training forward
+  (``_run_stages`` with ``remat``, :136-170): plain, differentiable
+  attention and scan (``layers._sdpa_chunked``, ``ssd.ssd_chunked``), each
+  layer rematerialised with ``torch.utils.checkpoint`` (the reference
+  checkpoints each repeat of a stage and, within a multi-block pattern,
+  each block: one layer here either way), computing with the tensors it
+  is handed by parameter name (the trainer's bf16 casts of its fp32
+  masters).  The serving forward goes through the kernels, which run
+  forward only.
 
 Layers run ``full`` or ``window`` attention, ``mla`` or ``mamba`` mixers,
 each with a dense FFN, a MoE FFN or none; an attention softcap raises
@@ -35,10 +44,11 @@ text-only, as the JAX engine does.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import resolve_device
@@ -167,28 +177,43 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return Model(cfg, L.frozen(top), blocks)
 
 
-def embed_tokens(model: Model, tokens, prefix_embeds=None):
+def _top(model: Model, name: str, params: Optional[Dict] = None):
+    """``model.top[name]``, or its stand-in ``params["top." + name]`` where
+    ``params`` (tensors by parameter name) holds one."""
+    return (params or {}).get(f"top.{name}", model.top[name])
+
+
+def embed_tokens(model: Model, tokens, prefix_embeds=None,
+                 params: Optional[Dict] = None):
     """Token embeddings [B, S, d]; with ``prefix_embeds`` [B, n, d] (a
     config with ``n_prefix_embeds`` only), their projection comes first,
-    [B, n + S, d]."""
-    x = model.top["embed"][tokens]
+    [B, n + S, d].  ``params``: tensors by parameter name (``top.embed``,
+    ``top.prefix_proj``) to use in place of the model's own."""
+    x = _top(model, "embed", params)[tokens]
     if model.cfg.n_prefix_embeds and prefix_embeds is not None:
-        pre = prefix_embeds.to(x.dtype) @ model.top["prefix_proj"]
+        pre = prefix_embeds.to(x.dtype) @ _top(model, "prefix_proj", params)
         x = torch.cat([pre, x], dim=1)
     return x
 
 
-def logits_fn(model: Model, hidden):
+def lm_head_weight(model: Model, params: Optional[Dict] = None):
+    """The output projection [d, V]: ``embed`` transposed where embeddings
+    are tied.  ``params``: tensors by parameter name (``top.embed``,
+    ``top.lm_head``) to use in place of the model's own."""
     if model.cfg.tie_embeddings:
-        return hidden @ model.top["embed"].T
-    return hidden @ model.top["lm_head"]
+        return _top(model, "embed", params).T
+    return _top(model, "lm_head", params)
 
 
-def _ffn(blk: Block, cfg: ModelConfig, x):
+def logits_fn(model: Model, hidden):
+    return hidden @ lm_head_weight(model)
+
+
+def _ffn(spec: BlockSpec, p, cfg: ModelConfig, x):
     """The layer's FFN output and its aux loss (0 unless MoE)."""
-    if blk.spec.ffn == "moe":
-        return L.moe_forward(blk.ffn, cfg, x)
-    return L.ffn_forward(blk.ffn, cfg, x), 0.0
+    if spec.ffn == "moe":
+        return L.moe_forward(p, cfg, x)
+    return L.ffn_forward(p, cfg, x), 0.0
 
 
 def _run_layers(model: Model, x, positions, collect: bool):
@@ -209,20 +234,64 @@ def _run_layers(model: Model, x, positions, collect: bool):
         if collect:
             states.append(st)
         if blk.ffn is not None:
-            y, a = _ffn(blk, cfg, x)
+            y, a = _ffn(blk.spec, blk.ffn, cfg, x)
             x, aux = x + y, aux + a
     return L.rms_norm(x, model.top["final_norm"], cfg.norm_eps), states, aux
 
 
-def model_forward(model: Model, tokens, prefix_embeds=None):
+def _train_layer(spec: BlockSpec, parts: dict, cfg: ModelConfig, x,
+                 positions):
+    """One layer of the training forward: (x, aux loss)."""
+    if spec.mixer in ("full", "window"):
+        y, _ = L.attn_forward(parts["attn"], cfg, x, positions, spec.window,
+                              train=True)
+    elif spec.mixer == "mla":
+        y, _ = L.mla_forward(parts["attn"], cfg, x, positions)
+    else:
+        y = ssd.mamba_forward(parts["mixer"], cfg, x, train=True)
+    x = x + y
+    if "ffn" not in parts:
+        return x, 0.0
+    y, aux = _ffn(spec, parts["ffn"], cfg, x)
+    return x + y, aux
+
+
+def model_forward(model: Model, tokens, prefix_embeds=None, *,
+                  train: bool = False, remat: bool = True,
+                  params: Optional[Dict[str, torch.Tensor]] = None):
     """Teacher-forcing forward.  Returns (final_hidden [B, S, d], aux_loss):
     the MoE layers' Switch losses summed, 0 for a model without MoE.  S
-    counts the prefix positions."""
-    x = embed_tokens(model, tokens, prefix_embeds)
+    counts the prefix positions.
+
+    Serving (``train=False``), attention and the scan run the kernels.
+    ``train=True`` runs the plain, differentiable training path, each layer
+    rematerialised unless ``remat`` is False, with ``params`` (tensors by
+    ``named_parameters`` name) in place of the model's own where given;
+    above 512 tokens, a full or window attention layer needs a multiple of
+    512, as the reference's."""
+    if params and not train:
+        raise ValueError("params replace weights in the training forward "
+                         "only")
+    params = params or {}
+    x = embed_tokens(model, tokens, prefix_embeds, params)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x, _, aux = _run_layers(model, x, positions, collect=False)
-    return x, aux
+    if not train:
+        x, _, aux = _run_layers(model, x, positions, collect=False)
+        return x, aux
+    aux = torch.zeros((), device=x.device)
+    for i, blk in enumerate(model.layers):
+        parts = {part: {k: params.get(f"layers.{i}.{part}.{k}", v)
+                        for k, v in getattr(blk, part).items()}
+                 for part in blk.parts}
+        if remat:
+            x, a = checkpoint(_train_layer, blk.spec, parts, model.cfg, x,
+                              positions, use_reentrant=False)
+        else:
+            x, a = _train_layer(blk.spec, parts, model.cfg, x, positions)
+        aux = aux + a
+    return (L.rms_norm(x, _top(model, "final_norm", params),
+                       model.cfg.norm_eps), aux)
 
 
 def prefill(model: Model, tokens,
@@ -278,7 +347,7 @@ def prefill_chunk(model: Model, cache: dict, tokens):
         x = x + L.attn_chunk(blk.attn, cfg, x, cache["k"][i], cache["v"][i],
                              pos0, blk.spec.window)
         if blk.ffn is not None:
-            x = x + _ffn(blk, cfg, x)[0]
+            x = x + _ffn(blk.spec, blk.ffn, cfg, x)[0]
     x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
     cache["pos"] = pos0 + C
     return logits_fn(model, x[:, -1]), cache
@@ -327,6 +396,6 @@ def decode_step(model: Model, tokens, cache: dict):
                 cache["ssm"][i])
             x = x + y
         if blk.ffn is not None:
-            x = x + _ffn(blk, cfg, x)[0]
+            x = x + _ffn(blk.spec, blk.ffn, cfg, x)[0]
     x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
     return logits_fn(model, x[:, 0])

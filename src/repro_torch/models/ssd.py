@@ -1,12 +1,16 @@
 """Mamba-2 SSD mixer of the port  [arXiv:2405.21060].
 
 Counterparts of ``repro/models/ssd.py``: ``init_mamba`` (:30-59),
-``_causal_conv`` (:62-67), ``mamba_forward`` (:134-193) and
-``mamba_decode`` (:196-241).  The chunked scan of ``mamba_forward`` always
-goes through the ``ssd`` kernel wrapper (``kernels/ssd/ops.py``), which
-runs the CUDA kernel on the card and its plain version on the CPU; the
-JAX layer calls the kernel only with ``use_kernel=True``.  The scan is
-float32 throughout, as the Pallas kernel computes it.  The one-token
+``_causal_conv`` (:62-67), ``ssd_chunked`` (:70-131), ``mamba_forward``
+(:134-193) and ``mamba_decode`` (:196-241).  Serving, the chunked scan of
+``mamba_forward`` goes through the ``ssd`` kernel wrapper
+(``kernels/ssd/ops.py``), which runs the CUDA kernel on the card and its
+plain version on the CPU, float32 throughout, as the Pallas kernel
+computes it; the JAX layer calls the kernel only with ``use_kernel=True``.
+Training (``mamba_forward(..., train=True)``) runs ``ssd_chunked``, as the
+reference's training path does (``use_kernel=False``): plain,
+differentiable torch that casts the intra-chunk weights to ``x.dtype``
+as the reference does (:103), where the kernel keeps float32.  The one-token
 decode update runs outside any kernel in JAX too, so here it is plain
 torch ops on the device, updating the states in place.  Parameters are
 ``nn.ParameterDict``s keyed like the JAX pytree; ``A_log``, ``D`` and
@@ -72,10 +76,68 @@ def _heads(p, h):
             h @ p["w_dt"])
 
 
-def mamba_forward(p, cfg: ModelConfig, x, return_state: bool = False):
+def ssd_chunked(x, dt, A, B_, C, chunk: int):
+    """Chunked SSD scan, the reference's plain training path.
+
+    x: [B, L, H, P]; dt: [B, L, H] (post-softplus, float32); A: [H]
+    (negative decay rates); B_/C: [B, L, G, N]; L a multiple of ``chunk``.
+    Returns y [B, L, H, P] float32 and the final state [B, H, P, N] f32.
+    The intra-chunk weights ``att`` are cast to ``x.dtype`` before their
+    product with x (bf16 in training), as in the reference."""
+    Bsz, L, H, Pd = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    if L % chunk:
+        raise ValueError(f"length {L} is not a multiple of the chunk {chunk}")
+    nc = L // chunk
+    rep = H // G
+    f32 = torch.float32
+
+    xc = x.reshape(Bsz, nc, chunk, H, Pd)
+    dtc = dt.reshape(Bsz, nc, chunk, H).to(f32)
+    Bh = B_.reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+    Ch = C.reshape(Bsz, nc, chunk, G, N).repeat_interleave(rep, dim=3)
+
+    dA = dtc * A                               # [B,nc,Q,H]  (negative)
+    seg = torch.cumsum(dA, dim=2)              # within-chunk cumulative decay
+
+    # intra-chunk (dense, causal-masked before the exp: no overflow)
+    cb = torch.einsum("bcihn,bcjhn->bchij", Ch.to(f32), Bh.to(f32))
+    seg_h = seg.transpose(2, 3)                # [B,nc,H,Q]
+    diff = seg_h[..., :, None] - seg_h[..., None, :]
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    decay = torch.exp(diff.masked_fill(~causal, float("-inf")))
+    att = cb * decay * dtc.transpose(2, 3)[:, :, :, None, :]
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", att.to(x.dtype), xc)
+
+    # per-chunk states: S_c = sum_j exp(seg_last - seg_j) dt_j x_j B_j
+    last = seg[:, :, -1:, :]
+    w_in = torch.exp(last - seg) * dtc         # [B,nc,Q,H]
+    S = torch.einsum("bcjh,bcjhp,bcjhn->bchpn", w_in, xc.to(f32), Bh.to(f32))
+
+    # inter-chunk recurrence over the chunk states: the state before each
+    chunk_decay = torch.exp(last[:, :, 0, :])  # [B,nc,H]
+    h = torch.zeros((Bsz, H, Pd, N), dtype=f32, device=x.device)
+    before = []
+    for c in range(nc):
+        before.append(h)
+        h = chunk_decay[:, c, :, None, None] * h + S[:, c]
+    h_before = torch.stack(before, dim=1)      # [B,nc,H,P,N]
+
+    # inter-chunk output: y_i += (C_i exp(seg_i)) . h_before
+    y_inter = torch.einsum("bcihn,bchpn->bcihp",
+                           Ch.to(f32) * torch.exp(seg)[..., None], h_before)
+    y = y_intra.to(f32) + y_inter
+    return y.reshape(Bsz, L, H, Pd), h
+
+
+def mamba_forward(p, cfg: ModelConfig, x, return_state: bool = False,
+                  train: bool = False):
     """Full-sequence Mamba-2 block.  x: [B, L, d] -> [B, L, d]; with
     ``return_state`` also (conv tail {"x", "B", "C"} of the raw projections
-    [B, K-1, ·], final SSM state [B, H, P, N] f32) for the decode cache."""
+    [B, K-1, ·], final SSM state [B, H, P, N] f32) for the decode cache.
+    The scan runs the ``ssd`` kernel wrapper, or with ``train`` the plain,
+    differentiable ``ssd_chunked``."""
     s = cfg.ssm
     d = cfg.d_model
     di, nh = s.d_inner(d), s.n_heads(d)
@@ -101,7 +163,10 @@ def mamba_forward(p, cfg: ModelConfig, x, return_state: bool = False):
         Cv = F.pad(Cv, (0, 0, 0, 0, 0, pad))
     else:
         xs_p = xs
-    y, state = ssd(xs_p, dt, A, Bv, Cv, chunk=s.chunk)
+    if train:
+        y, state = ssd_chunked(xs_p, dt, A, Bv, Cv, s.chunk)
+    else:
+        y, state = ssd(xs_p, dt, A, Bv, Cv, chunk=s.chunk)
     y = y[:, :L] + xs.float() * p["D"][None, None, :, None]
     y = y.reshape(B, L, di)
     y = rms_norm(y.to(x.dtype) * F.silu(z.float()).to(x.dtype), p["gn"],

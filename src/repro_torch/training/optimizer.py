@@ -12,14 +12,20 @@ rather than taken from ``torch.optim.AdamW``, whose results differ:
 
 Parameters and gradients are a list or a dict of tensors; the state holds
 ``m`` and ``v`` in float32 in the same layout and ``step`` as a Python int.
-The update is functional: it returns new tensors and leaves its inputs as
-they are.
+``adamw_step_`` applies the rules in place, leaf by leaf (the trainer's
+step: at minicpm-2b's 2.7 B parameters a functional update would hold a
+second set of parameters and moments, 32.7 GB).  ``adamw_update`` is the
+functional form, ``adamw_step_`` on copies, for callers that keep their
+inputs (the predictor's trainer, the parity tests).  Both
+take ``decay``, one flag per leaf in the parameters' layout, where the
+caller's leaves do not carry the reference's ``ndim`` (the trainer's
+per-layer leaves lack the JAX tree's stacked repeat axis).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Union
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -83,34 +89,46 @@ def _global_norm(grads) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Tensors, grads: Tensors,
-                 opt_state: dict):
-    """Returns (new_params, new_opt_state, metrics).  The clip scale stays a
-    device tensor, so a step reads nothing back to the host."""
-    step = opt_state["step"]
+                 opt_state: dict, decay: Optional[Tensors] = None):
+    """Returns (new_params, new_opt_state, metrics): ``adamw_step_`` on
+    copies of the parameters and moments, so the inputs stay as they are.
+    ``decay``: whether each leaf decays (default: ``ndim >= 2``)."""
     keys = [k for k, _ in _items(params)]
-    flat_p = [params[k] for k in keys]
-    flat_g = [grads[k] for k in keys]
-    flat_m = [opt_state["m"][k] for k in keys]
-    flat_v = [opt_state["v"][k] for k in keys]
-    gnorm = _global_norm(flat_g)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    lr = lr_at(cfg, step)
+    new_params = _like(params, [params[k].clone() for k in keys])
+    new_state = {"m": _like(params, [opt_state["m"][k].clone() for k in keys]),
+                 "v": _like(params, [opt_state["v"][k].clone() for k in keys]),
+                 "step": opt_state["step"]}
+    return new_params, new_state, adamw_step_(cfg, new_params, grads,
+                                              new_state, decay)
+
+
+@torch.no_grad()
+def adamw_step_(cfg: AdamWConfig, params: Tensors, grads: Tensors,
+                opt_state: dict, decay: Optional[Tensors] = None) -> dict:
+    """The update in place: updates the tensors of ``params`` and the
+    state's ``m`` and ``v``, advances its ``step``, and returns the metrics.
+    One leaf at a time, so the extra memory is a few temporaries of the
+    largest leaf.  The clip scale stays a device tensor, so a step reads
+    nothing back to the host."""
+    step = opt_state["step"]
     b1, b2 = cfg.b1, cfg.b2
-    c1 = 1.0 - b1 ** (step + 1)
-    c2 = 1.0 - b2 ** (step + 1)
-
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        u = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
-        wd = cfg.weight_decay if p.ndim >= 2 else 0.0
-        newp = p.float() - lr * (u + wd * p.float())
-        return newp.to(p.dtype), m, v
-
-    out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m,
-                                                    flat_v)]
-    new_params = _like(params, [o[0] for o in out])
-    new_state = {"m": _like(params, [o[1] for o in out]),
-                 "v": _like(params, [o[2] for o in out]), "step": step + 1}
-    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+    lr, c1, c2 = lr_at(cfg, step), 1.0 - b1 ** (step + 1), 1.0 - b2 ** (step + 1)
+    keys = [k for k, _ in _items(params)]
+    gnorm = _global_norm([grads[k] for k in keys])
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    for k in keys:
+        p, m, v = params[k], opt_state["m"][k], opt_state["v"][k]
+        wd = cfg.weight_decay if (p.ndim >= 2 if decay is None
+                                  else decay[k]) else 0.0
+        g = grads[k].float() * scale
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g * g)
+        del g
+        u = (m / c1).div_(torch.sqrt(v / c2).add_(cfg.eps))
+        u.add_(wd * p.float()).mul_(lr)
+        if p.dtype == torch.float32:
+            p.sub_(u)
+        else:
+            p.copy_(p.float() - u)
+    opt_state["step"] += 1
+    return {"grad_norm": gnorm, "lr": lr}

@@ -5,6 +5,7 @@ cache) and jamba-v0.1-52b (mamba, attention, MoE) batched and staggered;
 plus the paged allocator, the bounded events ring, and the CPU run of the
 serving launcher."""
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -253,6 +254,36 @@ def test_profile_summary_counts_plain_port_kernels():
                                          "ssd_state_pass_kernel"]
     assert s["port_kernels"]["ssd_scan_mma_kernel"]["ms_per_step"] == \
         pytest.approx(0.012)
+
+
+def test_profile_kinds_tell_indexed_writes_from_copies(tmp_path):
+    """``scatter`` contains ``cat``: gathers, scatters and indexed writes
+    are "index" kernels, and only copies and concatenations are copies."""
+    from repro_torch.launch.profile_step import _kernels_by_kind
+    kinds = {
+        "void at::native::(anonymous namespace)::CatArrayBatchedCopy"
+        "<float, unsigned int, 3, 128, 1>(float*, int)": "copy",
+        "void at::native::unrolled_elementwise_kernel<at::native::"
+        "direct_copy_kernel_cuda(at::TensorIteratorBase&)>(int)": "copy",
+        "void at::native::_scatter_gather_elementwise_kernel<128, 4>(int)":
+            "index",
+        "void at::native::indexing_backward_kernel<c10::BFloat16, 4>(int)":
+            "index",
+        "void at::native::index_elementwise_kernel<128, 4>(long)": "index",
+        "void (anonymous namespace)::elementwise_kernel_with_index<int>(int)":
+            "elementwise/other",
+        "void at::native::(anonymous namespace)::cunn_SoftMaxForward<4>"
+        "(float*)": "softmax",
+        "void at::native::reduce_kernel<512, 1>(int)": "reduce",
+        "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64": "gemm",
+    }
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": n, "ts": float(i), "dur": 1000.0}
+        for i, n in enumerate(kinds)]}))
+    got = list(_kernels_by_kind(trace))
+    assert [k for k, _ in got] == list(kinds.values())
+    assert all(ms == pytest.approx(1.0) for _, ms in got)
 
 
 # -- MLA and MoE: reduced deepseek-v2-lite-16b and jamba-v0.1-52b ------------

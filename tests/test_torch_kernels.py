@@ -313,3 +313,32 @@ def test_paged_wrapper_rejects_groups_past_eight():
     with pytest.raises(ValueError):
         paged_attention(q, kp, kp.clone(), torch.zeros(1, 2, dtype=torch.int32),
                         torch.ones(1, dtype=torch.int32))
+
+
+def test_wrappers_refuse_inputs_that_require_grad():
+    """The kernels run forward only (their output has no autograd history),
+    so with grad mode on an input that requires grad raises, on the CPU
+    too; under ``torch.no_grad()`` the same call runs."""
+    from repro_torch.kernels.ssd.ops import ssd
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 8, 4, 32, generator=g)
+    k = torch.randn(1, 8, 2, 32, generator=g)
+    kp = torch.randn(3, 8, 2, 32, generator=g)
+    x = torch.randn(1, 16, 2, 8, generator=g)
+    bc = torch.randn(1, 16, 1, 8, generator=g)
+    calls = {
+        "flash_attention": lambda w: flash_attention(q, w, k),
+        "paged_attention": lambda w: paged_attention(
+            q[:, 0].contiguous(), w, kp, torch.tensor([[2, 0]], dtype=torch.int32),
+            torch.tensor([11], dtype=torch.int32)),
+        "ssd": lambda w: ssd(x, torch.rand(1, 16, 2, generator=g),
+                             -torch.ones(2), w, bc, chunk=16),
+    }
+    leaves = {"flash_attention": k, "paged_attention": kp, "ssd": bc}
+    for name, call in calls.items():
+        w = leaves[name].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward only"):
+            call(w)
+        with torch.no_grad():
+            call(w)
+        call(w.detach())
