@@ -11,7 +11,11 @@ JAX.  Phases, each printing one JSON line:
    paged decode, flash attention, SSD scan), ptxas's registers and spills,
    and the count of tensor-core instructions (``HGMMA``, ``HMMA``) that
    ``cuobjdump -sass`` finds in the flash and SSD libraries, where the
-   toolkit has ``cuobjdump``;
+   toolkit has ``cuobjdump``; then the ``ptxas`` line: ptxas's report for
+   ``flash_wgmma_kernel<256>`` (gemma3-12b's prefill), which must show no
+   spill and no C7512/C7518 note (``wgmma`` serialised), and the highest
+   register its SASS names (its consumers hold more than the launch count
+   that ptxas reports, after ``setmaxnreg``);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, with its time (device time: the timed calls are
    replayed from a CUDA graph), the plain version's, one PyTorch
@@ -36,8 +40,11 @@ JAX.  Phases, each printing one JSON line:
    fail.  Flash attention also runs small untimed shapes that reach every
    branch of its two CUDA kernels (``FLASH_BRANCHES``: head dims,
    groupings, ragged edges, window, softcap, non-causal, a k/v prefix of
-   a longer buffer, and shapes routed to the fp32 FMA kernel: fp32, bf16
-   at hd 32, and hd 256 in both types, with a window and a prefix).
+   a longer buffer; bf16 at hd 256 on the ``wgmma`` kernel with G = 1, 2
+   and 8, Lq not a multiple of 128 and below 64, windows of 20 and 1024,
+   non-causal, softcap, chunks, B=2 prefixes; and shapes routed to the
+   fp32 FMA kernel: fp32, hd 256 included, and bf16 at hd 32); each line
+   must name the kernel ``flash_route`` says the shape takes.
    SSD: both input types are computed in fp32 by the kernel and the plain
    version alike (bf16 products on the tensor cores with each fp32
    operand split into two bf16 parts), so both are held to 1e-4 of the
@@ -65,10 +72,14 @@ JAX.  Phases, each printing one JSON line:
    H=32 over KV=16, hd 128, ctx 1024 over its full 64-page ring, the
    identity table), flash attention at minicpm-2b's prefill (Lq=Lk=2000,
    H=36 over KV=36, hd 64), at a gemma3-27b window layer's (H=32 over
-   KV=16, hd 128, window 1024) and at gemma3-12b's (H=16 over KV=8, hd
-   256, the FMA kernel), and the SSD scan at jamba-v0.1-52b's prefill
-   (B=1, L=2048, H=128 heads of P=64, one group of N=16, chunk 256;
-   ``SSD_BRANCHES`` holds an untimed P=64, N=16 shape too);
+   KV=16, hd 128, window 1024), at gemma3-12b's (H=16 over KV=8, hd
+   256, on ``wgmma``: a global layer, a window layer of 1024 and engine
+   1's third chunk, Lq=512 over Lk=1536, window 1024; each ``wgmma``
+   row's ``schedule`` counts its blocks' key tiles per SM, from the
+   shapes), and the SSD scan
+   at jamba-v0.1-52b's prefill (B=1, L=2048, H=128 heads of P=64, one
+   group of N=16, chunk 256; ``SSD_BRANCHES`` holds an untimed P=64, N=16
+   shape too);
 3. reduced: reduced llama3.1-8b, mamba2-1.3b, a hybrid (a mamba layer,
    then full attention), minicpm-2b, qwen3-32b (qk_norm), internvl2-1b,
    musicgen-medium, deepseek-v2-lite-16b (MLA and MoE: no kernel, the
@@ -191,6 +202,7 @@ import copy
 import itertools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -244,19 +256,53 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def ptxas_report(log: str, mangled: str) -> list:
+    """ptxas's lines for the one kernel whose mangled name holds
+    ``mangled``: from its ``Compiling entry function`` line to the next
+    entry's, and every note elsewhere that names it."""
+    out, mine = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mine = mangled in ln
+        if mine or (mangled in ln and "Performance Loss" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def _sass(name: str):
+    """``cuobjdump -sass`` of kernel library ``name``, or None where the
+    toolkit has no ``cuobjdump``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    return subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def tensor_core_count(name: str) -> dict:
     """Tensor-core instructions in the SASS of kernel library ``name``:
     ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync), as ``cuobjdump -sass`` reads
     them, or why they were not counted."""
-    from repro_torch.kernels import _build
-    tool = Path(_build._nvcc()).parent / "cuobjdump"
-    if not tool.is_file():
-        return {"counted": False, "why": f"no {tool} in this toolkit"}
-    sass = subprocess.run([str(tool), "-sass",
-                           str(_build.library_path(name))],
-                          capture_output=True, text=True, check=True).stdout
+    sass = _sass(name)
+    if sass is None:
+        return {"counted": False, "why": "no cuobjdump in this toolkit"}
     return {"counted": True, "HGMMA": sass.count("HGMMA"),
             "HMMA": sass.count("HMMA")}
+
+
+def sass_top_register(name: str, mangled: str):
+    """The highest register ``R<n>`` that the SASS of the one kernel of
+    library ``name`` whose mangled name holds ``mangled`` names: what its
+    threads really hold, where setmaxnreg lifts them past the launch count
+    that ptxas reports.  None without ``cuobjdump``."""
+    sass = _sass(name)
+    if sass is None:
+        return None
+    for part in sass.split("Function : ")[1:]:
+        if mangled in part.split("\n", 1)[0]:
+            return max(int(r) for r in re.findall(r"\bR(\d+)\b", part))
+    raise AssertionError(f"no {mangled} in the SASS of {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +490,11 @@ MODEL_ROWS = [
     ("flash_attention", "gemma3-12b", dict(Lq=2000, Lk=2000, H=16, KV=8,
                                            hd=256)),
     ("ssd", "jamba-v0.1-52b", dict(L=2048, H=128, P=64, G=1, N=16)),
+    # a gemma3-12b window layer, one-shot and engine 1's third chunk
+    ("flash_attention", "gemma3-12b window", dict(Lq=2000, Lk=2000, H=16,
+                                                  KV=8, hd=256, window=1024)),
+    ("flash_attention", "gemma3-12b chunk", dict(Lq=512, Lk=1536, H=16, KV=8,
+                                                 hd=256, window=1024)),
 ]
 
 
@@ -516,6 +567,32 @@ def _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len=None):
     return q, kv[0][:, :Lk], kv[1][:, :Lk]
 
 
+def wgmma_schedule(Lq: int, Lk: int, H: int, B: int, hd: int, sms: int,
+                   window=None) -> dict:
+    """How the ``wgmma`` route's causal blocks fall on the SMs, from the
+    shapes alone: the key tiles each block visits (128 q rows, 128-key
+    tiles at hd 64, else 64, as ``flash_wgmma_kernel`` cuts them), the
+    blocks handed out in launch order (heads fastest, heaviest q tile
+    first), each to the SM that frees first, one block an SM.  ``tail``
+    is the busiest SM's tiles over the mean: the time the last wave adds
+    if every tile costs the same."""
+    bk, off = (128 if hd == 64 else 64), Lk - Lq
+    tiles = []
+    for _ in range(B):
+        for q0 in reversed(range(0, Lq, 128)):
+            k_lo = max(0, q0 + off - window + 1) if window else 0
+            k_hi = min(Lk, min(q0 + 128, Lq) + off)
+            tiles += [-(-(k_hi - k_lo // bk * bk) // bk)] * H
+    free = [0] * sms
+    for t in tiles:
+        i = free.index(min(free))
+        free[i] += t
+    mean = sum(tiles) / sms
+    return {"blocks": len(tiles), "waves": len(tiles) / sms,
+            "sm_tiles_max": max(free), "sm_tiles_mean": mean,
+            "tail": max(free) / mean}
+
+
 def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
                KV: int = 8, hd: int = 128, window=None):
     """llama3.1-8b's prefill attention (H=32 over KV=8, hd=128, unless H,
@@ -555,10 +632,14 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
         qh, kh, vh, attn_mask=mask))
     library_ms = masked_ms if Lq != Lk or window is not None else time_ms(
         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
+    route = cuda_kernel(q.dtype, hd)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {
         "Lq": Lq, "Lk": Lk, "H": H, "KV": KV, "hd": hd, "dtype": dtype_name,
         "window": window, "pairs": pairs,
-        "route": cuda_kernel(q.dtype, hd), "max_abs_err": err,
+        "route": route, "max_abs_err": err,
+        "schedule": (wgmma_schedule(Lq, Lk, H, B, hd, sms, window)
+                     if route == "wgmma" else None),
         "ms": time_ms(lambda: flash_attention(q, k, v, causal=True,
                                               window=window)),
         "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True,
@@ -585,12 +666,33 @@ FLASH_BRANCHES = [
     (2, 200, 450, 8, 2, 64, "bfloat16", {}, 600),             # prefix
     (2, 77, 333, 8, 2, 128, "float32", {}, 700),              # fma: fp32
     (1, 256, 256, 4, 2, 32, "bfloat16", {}, None),            # fma: hd 32
-    (1, 300, 300, 16, 8, 256, "bfloat16", {}, None),          # fma: hd 256
-    (1, 300, 300, 8, 8, 256, "bfloat16", {"window": 64}, None),
-    (2, 77, 333, 16, 8, 256, "float32", {"window": 100}, 700),  # hd 256
-    (2, 130, 130, 16, 8, 256, "bfloat16", {}, 200),           # hd 256, prefix
+    (2, 77, 333, 16, 8, 256, "float32", {"window": 100}, 700),  # fma: hd 256
     (1, 300, 300, 32, 16, 128, "bfloat16", {"window": 128}, None),  # gemma3
+    # bf16 at hd 256 (gemma3-12b): wgmma, 384 threads, 64-key tiles
+    (1, 256, 256, 8, 8, 256, "bfloat16", {}, None),           # G = 1
+    (1, 300, 300, 16, 8, 256, "bfloat16", {}, None),          # G = 2, ragged
+    (1, 200, 200, 16, 2, 256, "bfloat16", {}, None),          # G = 8
+    (1, 40, 40, 4, 2, 256, "bfloat16", {}, None),             # Lq < 64
+    (1, 9, 25, 4, 1, 256, "bfloat16", {}, None),              # chunk, Lq < 64
+    (1, 300, 300, 8, 8, 256, "bfloat16", {"window": 64}, None),
+    (1, 300, 300, 8, 4, 256, "bfloat16", {"window": 20}, None),  # < a tile
+    (1, 1100, 1100, 4, 2, 256, "bfloat16", {"window": 1024}, None),
+    (1, 130, 300, 8, 2, 256, "bfloat16", {"causal": False}, None),
+    (1, 130, 300, 8, 2, 256, "bfloat16",
+     {"causal": False, "window": 50}, None),
+    (1, 200, 264, 8, 2, 256, "bfloat16", {"softcap": 30.0}, None),
+    (1, 77, 333, 8, 2, 256, "bfloat16", {}, None),            # chunk
+    (2, 130, 130, 16, 8, 256, "bfloat16", {}, 200),           # prefix, B = 2
+    (2, 77, 333, 16, 8, 256, "bfloat16", {"window": 100}, 700),
+    (1, 512, 1100, 4, 2, 256, "bfloat16", {"window": 1024}, 1300),
 ]
+
+
+def flash_route(dtype_name: str, hd: int) -> str:
+    """The CUDA kernel a flash call must take: the tensor cores for bf16
+    at hd 64, 128 and 256, the FMA kernel for the rest."""
+    return ("wgmma" if dtype_name == "bfloat16" and hd in (64, 128, 256)
+            else "fma")
 
 
 def flash_branch_case(B, Lq, Lk, H, KV, hd, dtype_name, kw, buf_len, seed):
@@ -770,6 +872,8 @@ def check_kernels():
             {"name": name, "model": model, **r})
         ok = (r["rel_err"] <= TOL["float32"] if name == "ssd"
               else r["max_abs_err"] <= TOL["bfloat16"])   # NaN fails too
+        if name == "flash_attention":
+            ok = ok and r["route"] == flash_route("bfloat16", r["hd"])
         if not ok:
             raise AssertionError(f"{name} at {model}'s shape disagrees with "
                                  f"its plain version: {r}")
@@ -794,6 +898,9 @@ def check_kernels():
         if not r["max_abs_err"] <= TOL[r["dtype"]]:   # NaN fails too
             raise AssertionError(f"flash_attention disagrees with its plain "
                                  f"version: {r}")
+        if r["route"] != flash_route(r["dtype"], r["hd"]):
+            raise AssertionError(f"flash_attention took the wrong kernel: "
+                                 f"{r}")
     for i, shape in enumerate(SSD_BRANCHES):
         for dtype_name in ("float32", "bfloat16"):
             r = ssd_branch_case(*shape, dtype_name, seed=300 + i)
@@ -1501,6 +1608,17 @@ def main() -> int:
                     for n, log in logs.items()},
           "flash_sass": tensor_core_count("flash_attention"),
           "ssd_sass": tensor_core_count("ssd")})
+    # gemma3-12b's prefill route: 128 O accumulators a consumer thread
+    hd256 = ptxas_report(logs["flash_attention"], "flash_wgmma_kernelILi256E")
+    emit({"phase": "ptxas", "kernel": "flash_wgmma_kernel<256>",
+          "report": hd256, "sass_top_register": sass_top_register(
+              "flash_attention", "flash_wgmma_kernelILi256E")})
+    spills = [int(n) for ln in hd256
+              for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
+    if not spills or any(spills) or any(
+            c in ln for ln in hd256 for c in ("C7512", "C7518")):
+        raise AssertionError(f"flash_wgmma_kernel<256> spills or serialises "
+                             f"its wgmma: {hd256}")
 
     cases = check_kernels()
     for arch in REDUCED_ARCHS:

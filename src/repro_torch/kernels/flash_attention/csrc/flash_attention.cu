@@ -20,59 +20,76 @@
 //   (3.35 TB/s), are the limit.  Only the tensor cores reach that bound:
 //   the fp32 CUDA cores peak at 67 TFLOP/s.
 //
-// Two kernels; the entry point routes by dtype and head dim:
+// Two kernels; the entry point routes by dtype and head dim
+// (flash_attention_uses_wgmma):
 //
-// * bf16 with hd 64 or 128 (llama3.1-8b, qwen2.5-14b): flash_wgmma_kernel,
-//   warp-specialised on the tensor cores.  One block per (128-row q tile,
-//   query head, sequence), the heaviest causal q tiles launched first: two
-//   consumer warpgroups own 64 q rows each, and one producer warp issues
-//   TMA loads, the q tile once, then K and V tiles (64 keys at hd 128, 128
-//   at hd 64) into a ring of shared-memory stages (2 at hd 128, 3 at hd
-//   64).  Each stage has a full and an empty mbarrier for K and for V, so a
-//   K tile is refilled as soon as its S is taken.  Per key tile a consumer
-//   computes S = Q K^T with wgmma m64nBKk16 (A = Q, B = K, both K-major
-//   from shared memory), takes the online softmax in registers on the
-//   accumulator layout (row max and sum over the 4 threads of a row; scale,
-//   softcap, then the masks, applied only on tiles that cross the diagonal,
-//   the window edge or the ragged key edge), rescales O, and adds P V with
+// * bf16 with hd 64, 128 or 256 (llama3.1-8b, qwen2.5-14b, minicpm-2b,
+//   gemma3-27b; gemma3-12b at 256): flash_wgmma_kernel, warp-specialised
+//   on the tensor cores.  One block per (128-row q tile, query head,
+//   sequence), the heaviest causal q tiles launched first: two consumer
+//   warpgroups own 64 q rows each, and a producer issues TMA loads, the q
+//   tile once, then K and V tiles (128 keys at hd 64, 64 at hd 128 and
+//   256) into a ring of shared-memory stages (3 at hd 64, else 2).  Each
+//   stage has a full and an empty mbarrier for K and for V, so a K tile is
+//   refilled as soon as its S is taken.  Per key tile a consumer computes
+//   S = Q K^T with wgmma m64nBKk16 (A = Q, B = K, both K-major from shared
+//   memory), takes the online softmax in registers on the accumulator
+//   layout (row max and sum over the 4 threads of a row; scale, softcap,
+//   then the masks, applied only on tiles that cross the diagonal, the
+//   window edge or the ragged key edge), rescales O, and adds P V with
 //   wgmma m64nHDk16 (A = P rounded to bf16 in registers, B = V MN-major
-//   from shared memory, the transpose flag set).  S of tile i and P V of
-//   tile i - 1 are issued together, so P V runs on the tensor cores while
-//   the softmax of tile i runs, and the two consumers take turns to issue
-//   (named barriers), so one's products run while the other's softmax
-//   does.  TMA boxes are 64 columns (128 bytes) wide, the 128-byte swizzle
-//   span, so an hd = 128 row is loaded and described as two boxes.  The
-//   tensor maps are the 4-D [B, L, heads, hd] arrays with their real batch
-//   stride, and their L extent is Lk, so a prefix buf[:, :n] of a longer
-//   buffer reads zeros, not the buffer's tail, past n.  Keys at or past Lk
-//   are set to -inf (a zero-filled K row scores 0, not -inf).  The
-//   epilogue divides by max(l, 1e-30), stages O in bf16 over the
-//   consumer's own q rows in shared memory and stores the rows below Lq
-//   with 16-byte writes.
-//   Registers: S, O and P of the overlapped loop must all stay in registers
-//   while the products run.  At hd = 128 with 128-key tiles ptxas
-//   serialised every wgmma for want of registers and spilled; 64-key tiles
-//   halve S and P.  A block of 288 threads may give each thread up to 224
-//   registers, so setmaxnreg, which moves registers between warpgroups at
-//   run time, is not needed.
+//   from shared memory, the transpose flag set; at hd 256 one product
+//   spans the four 64-column boxes of a V row, LBO = BK * 128 bytes
+//   apart).  S of tile i and P V of tile i - 1 are issued together, so P V
+//   runs on the tensor cores while the softmax of tile i runs, and the two
+//   consumers take turns to issue (named barriers), so one's products run
+//   while the other's softmax does.  TMA boxes are 64 columns (128 bytes)
+//   wide, the 128-byte swizzle span, so an hd-wide row is loaded and
+//   described as hd / 64 boxes.  The tensor maps are the 4-D [B, L, heads,
+//   hd] arrays with their real batch stride, and their L extent is Lk, so
+//   a prefix buf[:, :n] of a longer buffer reads zeros, not the buffer's
+//   tail, past n.  Keys at or past Lk are set to -inf (a zero-filled K row
+//   scores 0, not -inf).  The epilogue divides by max(l, 1e-30), stages O
+//   in bf16 over the consumer's own q rows in shared memory (64 rows x
+//   hd / 64 boxes: 32 KB at hd 256, never the other consumer's rows) and
+//   stores the rows below Lq with 16-byte writes.
+//   Registers: S (BK/2 floats a thread), P (BK/4 words) and O (hd/2
+//   floats) of the overlapped loop must all stay in registers while the
+//   products run, or ptxas serialises every wgmma (C7512) and spills.
+//   ptxas gives a block of 9 or 12 warps at most 168 registers a thread
+//   (each of the SM's four 16K-register quarters holds 3 of its warps).
+//   At hd 64 and 128 that is enough for 288 threads, two consumers and
+//   one producer warp (O + S + P: 32 + 64 + 32 and 64 + 32 + 16 live).
+//   At hd 256 O alone is 128, and 64-key tiles make 128 + 32 + 16 = 176
+//   live: with 288 threads and 32-key tiles (152 live) ptxas still
+//   reported C7512 and 428 bytes of spill stores, and the call took
+//   0.164 ms at gemma3-12b's shape on an H100 (PERF.md).  So hd 256 runs
+//   384 threads: the producer is a whole warpgroup that drops to 40
+//   registers (setmaxnreg.dec) and the consumers rise to 232
+//   (setmaxnreg.inc; 40 + 2 x 232 = 504 of a quarter's 512 a lane).
+//   ptxas then reports no spill and no C7512; its "Used 168 registers"
+//   is the launch count, and the consumers' SASS reaches R228
+//   (cuobjdump).  Shared memory: q 64 KB, two stages of K and V 128 KB
+//   (193 KB with the barriers and the alignment slack), one block an SM;
+//   gemma3-12b's 2000-row prefill is 16 heads x 16 q tiles = 256 blocks,
+//   1.94 waves over 132 SMs.
 //   Numerics: P is rounded to bf16 before P V, where the Pallas kernel and
 //   the plain version keep it in fp32.  P lies in [0, 1], so each weight
 //   moves by at most 2^-9 of itself.  On the shapes checked on the card the
 //   bf16 outputs of kernel and plain version differ by at most one bf16
 //   step, within the bf16 tolerance of 2e-2 (PERF.md has the errors).
 //
-// * fp32 (any hd), and bf16 with hd 16, 32, 48, 80, 96, 112 or 256
-//   (gemma3-12b): flash_kernel, the first port, on the fp32 CUDA cores.
-//   fp32 on the tensor cores would be TF32, which breaks the 1e-4 fp32
-//   tolerance.  One block of 256 threads per (64-row q tile, head,
-//   sequence).  The q tile stays in shared memory; 64-key tiles of K and then V pass through one
-//   shared buffer (rows padded by one float against bank conflicts).  Each
-//   thread owns a 4 x 4 patch of the score tile and 4 rows x hd/16 columns
-//   of the output accumulator in registers; row max and row sum are reduced
-//   with shuffles across the 16 threads that share a row.  At hd 256 that
-//   is 64 accumulators a thread, and q, the K/V tile and P take 148 KB of
-//   dynamic shared memory: one block an SM.  A wgmma route at hd 256 (its
-//   O accumulator alone would be 128 registers a thread) is later work.
+// * fp32 (any hd), and bf16 with hd 16, 32, 48, 80, 96 or 112:
+//   flash_kernel, the first port, on the fp32 CUDA cores.  fp32 on the
+//   tensor cores would be TF32, which breaks the 1e-4 fp32 tolerance.
+//   One block of 256 threads per (64-row q tile, head, sequence).  The q
+//   tile stays in shared memory; 64-key tiles of K and then V pass through
+//   one shared buffer (rows padded by one float against bank conflicts).
+//   Each thread owns a 4 x 4 patch of the score tile and 4 rows x hd/16
+//   columns of the output accumulator in registers; row max and row sum
+//   are reduced with shuffles across the 16 threads that share a row.  At
+//   hd 256 (fp32 only) that is 64 accumulators a thread, and q, the K/V
+//   tile and P take 148 KB of dynamic shared memory: one block an SM.
 
 #include <cuda.h>
 #include <stdint.h>
@@ -82,7 +99,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// fp32, and bf16 at head dims other than 64 and 128: plain FMAs
+// fp32, and bf16 at head dims other than 64, 128 and 256: plain FMAs
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;        // q rows per block
@@ -90,7 +107,7 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16: ty picks rows, tx picks columns
 
 // NJ: hd / 16 rounded up to the instantiation (4 for hd <= 64, 8 for <= 128,
-// 16 for 256)
+// 16 for 256, fp32 only)
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -272,24 +289,35 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
   if (hd <= 128)
     return launch<T, 8>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb, sob,
                         causal, window, softcap, stream);
-  if (hd == 256)
-    return launch<T, 16>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb,
-                         sob, causal, window, softcap, stream);
+  if constexpr (sizeof(T) == 4) {  // bf16 at hd 256 runs on wgmma
+    if (hd == 256)
+      return launch<T, 16>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb,
+                           sob, causal, window, softcap, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 64 and 128: wgmma on the tensor cores, fed by TMA
+// bf16 at hd 64, 128 and 256: wgmma on the tensor cores, fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kWBQ = 128;       // q rows per block: two consumers of 64
-constexpr int kWThreads = 288;  // two consumer warpgroups + a producer warp
-constexpr int kBox = 64;        // bf16 columns per TMA box: 128 bytes
+constexpr int kWBQ = 128;  // q rows per block: two consumers of 64
+constexpr int kBox = 64;   // bf16 columns per TMA box: 128 bytes
 
+// Keys per K/V tile, ring stages and threads (see the header).  S (BK/2
+// floats a thread), P (BK/4 words) and O (HD/2 floats) of the overlapped
+// loop must all stay in a consumer's registers, and q plus the ring in
+// 227 KB of shared memory.
 template <int HD>
 struct WCfg {
-  static constexpr int kBK = HD == 128 ? 64 : 128;  // keys per K/V tile
+  static constexpr int kBK = HD == 64 ? 128 : 64;
   static constexpr int kStages = HD == 64 ? 3 : 2;
+  // 288: two consumer warpgroups and a producer warp, 168 registers a
+  // thread.  384 (hd 256): the producer is a warpgroup that gives
+  // registers to the consumers with setmaxnreg.
+  static constexpr int kThreads = HD == 256 ? 384 : 288;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
   static constexpr int kBoxes = HD / kBox;      // boxes per row
   static constexpr int kQBytes = kWBQ * HD * 2;
   static constexpr int kKVBytes = kBK * HD * 2;
@@ -506,6 +534,66 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] B[16 x 256]; A from registers, B from shared
+// memory, MN-major (transposed, 128B swizzle): four 64-column boxes, LBO
+// bytes apart.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
 template <int BK>
 __device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t da,
@@ -536,6 +624,12 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
                                               uint64_t db) {
   wgmma_rs_n128(d, a, db);
 }
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n256(d, a, db);
+}
 
 // Shared memory, from a 1024-byte aligned base: q [boxes][kWBQ rows][64],
 // then the K ring and the V ring, each stage [boxes][BK rows][64], all in
@@ -543,7 +637,7 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&d)[64],
 // 64c..64c+63 of every box.  K and V stages are released separately: a K
 // tile as soon as its S is taken, a V tile when its P V is done.
 template <int HD>
-__global__ void __launch_bounds__(kWThreads, 1)
+__global__ void __launch_bounds__(WCfg<HD>::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
@@ -590,6 +684,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (threadIdx.x >= 256) {
     // ---- producer ----
+    if constexpr (C::kThreads == 384)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          C::kProducerRegs));
     if (threadIdx.x == 256) {
       mbar_expect_tx(q_full, C::kQBytes);
       for (int c = 0; c < C::kBoxes; ++c)
@@ -612,6 +709,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   } else {
     // ---- consumers ----
+    if constexpr (C::kThreads == 384)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+          C::kConsumerRegs));
     const int cw = threadIdx.x / 128;
     const int t = threadIdx.x % 128;
     const int lane = t % 32;
@@ -879,7 +979,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
       smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, (Lq + kWBQ - 1) / kWBQ, B);
-  flash_wgmma_kernel<HD><<<grid, kWThreads, smem, stream>>>(
+  flash_wgmma_kernel<HD><<<grid, WCfg<HD>::kThreads, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), sob, Lq, Lk, H, KV, causal,
       window, softcap, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
@@ -887,10 +987,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// Which kernel a call takes: 1 for the wgmma kernel (bf16 at hd 64 or
-// 128), 0 for the fp32 FMA kernel.
+// Which kernel a call takes: 1 for the wgmma kernel (bf16 at hd 64, 128
+// or 256), 0 for the fp32 FMA kernel.
 extern "C" int flash_attention_uses_wgmma(int is_bf16, int hd) {
-  return is_bf16 && (hd == 64 || hd == 128);
+  return is_bf16 && (hd == 64 || hd == 128 || hd == 256);
 }
 
 // Batch strides are in elements; inside a sequence q/k/v/o are contiguous
@@ -905,12 +1005,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int causal, int window, float softcap,
                                       int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (flash_attention_uses_wgmma(is_bf16, hd))
-    return hd == 64 ? launch_wgmma<64>(q, k, v, o, B, Lq, Lk, H, KV, sqb, skb,
-                                       svb, sob, causal, window, softcap, s)
-                    : launch_wgmma<128>(q, k, v, o, B, Lq, Lk, H, KV, sqb,
-                                        skb, svb, sob, causal, window,
-                                        softcap, s);
+  if (flash_attention_uses_wgmma(is_bf16, hd)) {
+    decltype(&launch_wgmma<64>) fn = hd == 64    ? &launch_wgmma<64>
+                                     : hd == 128 ? &launch_wgmma<128>
+                                                 : &launch_wgmma<256>;
+    return fn(q, k, v, o, B, Lq, Lk, H, KV, sqb, skb, svb, sob, causal,
+              window, softcap, s);
+  }
   if (is_bf16)
     return launch_hd<__nv_bfloat16>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb,
                                     skb, svb, sob, causal, window, softcap, s);

@@ -4,10 +4,12 @@ Counterpart of ``repro/kernels/flash_attention/ops.py`` (the jit wrapper
 of ``flash_attention_pallas``).  A CUDA tensor launches the hand-written
 kernel or raises; a CPU tensor takes the plain version in ``ref.py``.
 The C entry point picks the CUDA kernel by dtype and head dim
-(:func:`cuda_kernel` reports which): bf16 at hd 64 or 128 runs on the
-tensor cores (wgmma, TMA), everything else on the fp32 FMA kernel,
-gemma3-12b's hd 256 included (bf16 or fp32).  Head dims: multiples of 16
-up to 128, and 256.
+(:func:`cuda_kernel` reports which): bf16 at hd 64, 128 or 256 runs on the
+tensor cores (wgmma, TMA; at gemma3-12b's hd 256 with 384 threads, the
+consumers raised to 232 registers by setmaxnreg), everything else on the
+fp32 FMA kernel: fp32 at every head dim, and bf16 at 16, 32, 48, 80, 96
+and 112.  A launch that fails raises; no call retreats to the other
+kernel.  Head dims: multiples of 16 up to 128, and 256.
 ``flash_attention.launches`` counts kernel launches.
 Forward only: with grad mode on, an input that requires grad raises
 (``_build.refuse_grad``), on the CPU too.
@@ -91,8 +93,8 @@ flash_attention.launches = 0
 
 def cuda_kernel(dtype, hd: int) -> str:
     """Which CUDA kernel a call with this dtype and head dim launches:
-    ``"wgmma"`` (tensor cores: bf16 at hd 64 and 128) or ``"fma"`` (fp32
-    CUDA cores: fp32, and bf16 at every other head dim, 256 included), as
+    ``"wgmma"`` (tensor cores: bf16 at hd 64, 128 and 256) or ``"fma"``
+    (fp32 CUDA cores: fp32 at every head dim, and bf16 at the others), as
     the C entry point decides.  Builds the library on first use."""
     f = _build.entry("flash_attention", "flash_attention_uses_wgmma",
                      [_I, _I])
