@@ -11,20 +11,27 @@ JAX.  Phases, each printing one JSON line:
    paged decode, flash attention, SSD scan), ptxas's registers and spills,
    and the count of tensor-core instructions (``HGMMA``, ``HMMA``) that
    ``cuobjdump -sass`` finds in the flash and SSD libraries, where the
-   toolkit has ``cuobjdump``; then the ``ptxas`` line: ptxas's report for
-   ``flash_wgmma_kernel<256>`` (gemma3-12b's prefill), which must show no
-   spill and no C7512/C7518 note (``wgmma`` serialised), and the highest
-   register its SASS names (its consumers hold more than the launch count
-   that ptxas reports, after ``setmaxnreg``);
+   toolkit has ``cuobjdump``; then three ``ptxas`` lines: ptxas's report
+   for ``flash_wgmma_kernel<256>`` (gemma3-12b's prefill) and for
+   ``flash_tf32x3_kernel<64>`` and ``<128>`` (the fp32 route), each of
+   which must show no spill and no C7512/C7518 note (``wgmma``
+   serialised), and the highest register its SASS names (the wgmma
+   kernel's consumers hold more than the launch count that ptxas reports,
+   after ``setmaxnreg``);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, with its time (device time: the timed calls are
    replayed from a CUDA graph), the plain version's, one PyTorch
    library call's where one computes the same function
    (``scaled_dot_product_attention`` on the attention inputs made dense, a
-   yardstick the port never calls; none computes the SSD scan) and the
+   yardstick the port never calls; none computes the SSD scan; the flash
+   lines name the kernels it ran, from a profiler trace, and its distance
+   from the plain version) and the
    bound: the larger of the bytes moved over 3.35 TB/s and the flops over
    the peak rate for the arithmetic's type (989 TFLOP/s bf16 tensor cores,
-   67 TFLOP/s fp32).  Attention: fp32 max abs err <= 1e-4, bf16 <= 2e-2.
+   67 TFLOP/s fp32 CUDA cores; the split-TF32 flash route does three
+   products for each fp32 product, so its bound is 3 x the flops over
+   TF32's 494.7 TFLOP/s, with ``bound_fma_ms``, the flops at 67, beside
+   it).  Attention: fp32 max abs err <= 1e-4, bf16 <= 2e-2.
    The paged decode kernel runs in two passes (splits of each sequence,
    then their merge); its lines print the partition (splits per sequence,
    split length, blocks of the first pass).  Its B=1 rows are timed over
@@ -38,13 +45,18 @@ JAX.  Phases, each printing one JSON line:
    padded table entries point at a page that no row names, and every such
    page, and every slot past ctx, holds NaN: a kernel that read one would
    fail.  Flash attention also runs small untimed shapes that reach every
-   branch of its two CUDA kernels (``FLASH_BRANCHES``: head dims,
+   branch of its three CUDA kernels (``FLASH_BRANCHES``: head dims,
    groupings, ragged edges, window, softcap, non-causal, a k/v prefix of
    a longer buffer; bf16 at hd 256 on the ``wgmma`` kernel with G = 1, 2
    and 8, Lq not a multiple of 128 and below 64, windows of 20 and 1024,
-   non-causal, softcap, chunks, B=2 prefixes; and shapes routed to the
-   fp32 FMA kernel: fp32, hd 256 included, and bf16 at hd 32); each line
-   must name the kernel ``flash_route`` says the shape takes.
+   non-causal, softcap, chunks, B=2 prefixes; fp32 at hd 64 and 128 on
+   the split-TF32 kernel with G = 1, 4, 5 and 8, ragged edges, Lq below
+   64, windows of 40 and 20, softcap, non-causal with and without a
+   window, B=2 prefixes and q and k scaled by 4 (peaked scores, where one
+   TF32 product would break 1e-4), and at the reduced configs' hd 16 and
+   32; and shapes routed to the FMA kernel: fp32 at hd 96 and 256, bf16
+   at hd 32); each line must name the kernel ``flash_route`` says the
+   shape takes.
    SSD: both input types are computed in fp32 by the kernel and the plain
    version alike (bf16 products on the tensor cores with each fp32
    operand split into two bf16 parts), so both are held to 1e-4 of the
@@ -76,7 +88,8 @@ JAX.  Phases, each printing one JSON line:
    256, on ``wgmma``: a global layer, a window layer of 1024 and engine
    1's third chunk, Lq=512 over Lk=1536, window 1024; each ``wgmma``
    row's ``schedule`` counts its blocks' key tiles per SM, from the
-   shapes), and the SSD scan
+   shapes; and in fp32, on the split-TF32 route, at minicpm-2b's and the
+   gemma3-27b window layer's shapes), and the SSD scan
    at jamba-v0.1-52b's prefill (B=1, L=2048, H=128 heads of P=64, one
    group of N=16, chunk 256; ``SSD_BRANCHES`` holds an untimed P=64, N=16
    shape too);
@@ -102,7 +115,10 @@ JAX.  Phases, each printing one JSON line:
    parameters, 52 window layers over 1024-row rings), gemma3-12b (whole:
    48 layers, hd 256) and mixtral-8x22b at 8 of its 56 layers (20.4 B
    parameters, window 4096, MoE; ``cut``), in bf16 (random weights from
-   a seed), each on two engines sharing one weight set, 12 requests
+   a seed), and llama3.1-8b again in fp32, the JAX engine's dtype (32.1
+   GB of weights; its prefill runs the split-TF32 flash route, its decode
+   the paged kernel's fp32 pass), each on two engines sharing one weight
+   set, 12 requests
    through the EMA-routed launcher; each model's memory is freed before
    the next is built.  qwen3-32b's engines hold 4 slots each, not 8: its
    65.5 GB of weights leave no room for 8 slots of 4096 tokens twice (the
@@ -187,11 +203,14 @@ JAX.  Phases, each printing one JSON line:
 
 Then the ``kernels`` line (``smoke_s``: the run's seconds so far, the
 build included; ``launches``: the count from the phase-4 run of
-llama3.1-8b or mamba2-1.3b, whichever runs each kernel; ``launches_by_path``:
+llama3.1-8b or mamba2-1.3b, whichever runs each kernel, in bf16;
+``flash_attention_fp32``, the split-TF32 route, with the fp32
+llama3.1-8b serve's count; ``cuda_kernel``: the flash route of the
+line's row; ``launches_by_path``:
 each path's count, every phase-4 model's, the phase-5 profile's and
 phase 6's evaluation;
 ``at_model_rows``: the kernel's timed rows at the other served models'
-shapes), the card's ``nvidia-smi`` line, and
+shapes, in the line's dtype), the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero without that last line, as does a machine without a CUDA device.
 """
@@ -213,7 +232,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# dense peaks: bf16 and TF32 on the tensor cores, fp32 on the CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 COLD_POOLS = 6     # B=1 paged pools timed in turn: 6 x 16.8 MB in bf16 > L2
 
@@ -472,7 +492,9 @@ PAGED_BRANCHES = [
 # bf16 rows at the decode and prefill shapes of the other served models,
 # timed as the llama and mamba rows are: (kernel, model, keyword
 # arguments).  Decode rows hold every sequence at ctx 1025 over the
-# engine's 4096-slot table.
+# engine's 4096-slot table.  The last two flash rows are fp32 (the
+# split-TF32 route) at minicpm-2b's hd 64 and a gemma3-27b window layer's
+# shape.
 MODEL_ROWS = [
     ("paged_attention", "qwen3-32b", dict(B=4, H=64, KV=8, hd=128, ctx=1025)),
     ("paged_attention", "minicpm-2b", dict(B=8, H=36, KV=36, hd=64, ctx=1025)),
@@ -495,6 +517,12 @@ MODEL_ROWS = [
                                                   KV=8, hd=256, window=1024)),
     ("flash_attention", "gemma3-12b chunk", dict(Lq=512, Lk=1536, H=16, KV=8,
                                                  hd=256, window=1024)),
+    ("flash_attention", "minicpm-2b fp32", dict(Lq=2000, Lk=2000, H=36,
+                                                KV=36, hd=64,
+                                                dtype_name="float32")),
+    ("flash_attention", "gemma3-27b window fp32", dict(
+        Lq=2000, Lk=2000, H=32, KV=16, hd=128, window=1024,
+        dtype_name="float32")),
 ]
 
 
@@ -550,18 +578,23 @@ def paged_branch_case(B, H, KV, hd, page, n_pages, dtype_name, ctxs, seed):
                                   for b in empty)}
 
 
-def _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len=None):
-    """q [B, Lq, H, hd] and k/v [B, Lk, KV, hd] on the card.  With
+def _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len=None,
+                 qk_scale=1.0):
+    """q [B, Lq, H, hd] and k/v [B, Lk, KV, hd] on the card, q and k
+    standard normal times ``qk_scale`` (4: scores 16 times as large, so
+    that an error of the products shows through a peaked softmax).  With
     ``buf_len`` > Lk, k/v are the prefix ``buf[:, :Lk]`` of a longer
     buffer, as ``attn_chunk`` passes them, and the rows past Lk are NaN: a
     kernel that read them would turn its output NaN."""
     import torch
     dt = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, Lq, H, hd), generator=g, device="cuda").to(dt)
+    q = (torch.randn((B, Lq, H, hd), generator=g, device="cuda")
+         * qk_scale).to(dt)
     S = buf_len or Lk
-    kv = [torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
-          for _ in range(2)]
+    k = torch.randn((B, S, KV, hd), generator=g, device="cuda") * qk_scale
+    v = torch.randn((B, S, KV, hd), generator=g, device="cuda")
+    kv = [k.to(dt), v.to(dt)]
     for t in kv:
         t[:, Lk:] = float("nan")
     return q, kv[0][:, :Lk], kv[1][:, :Lk]
@@ -593,6 +626,22 @@ def wgmma_schedule(Lq: int, Lk: int, H: int, B: int, hd: int, sms: int,
             "tail": max(free) / mean}
 
 
+def library_kernels(fn) -> list:
+    """The device kernels one call of ``fn`` runs, from a
+    ``torch.profiler`` trace: each name up to its argument list, at most
+    100 characters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted({e.key.split("(")[0][:100] for e in prof.key_averages()
+                   if e.device_type == cuda})
+
+
 def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
                KV: int = 8, hd: int = 128, window=None):
     """llama3.1-8b's prefill attention (H=32 over KV=8, hd=128, unless H,
@@ -601,7 +650,12 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
     and there is no window, so that PyTorch may take its flash backend;
     ``is_causal`` aligns top-left and knows no window, so the chunk shape
     (Lq < Lk) and a window keep the explicit mask.  ``library_masked_ms``
-    is the masked call at every shape."""
+    is the masked call at every shape; ``library_kernels`` the kernels the
+    ``library_ms`` call runs (from a profiler trace) and
+    ``library_max_abs_err`` its output's distance from the plain version.
+    The bound takes the route's rate: the split-TF32 route does three TF32
+    products for each fp32 product (``bound_fma_ms``: the same flops at
+    the fp32 CUDA cores' 67 TFLOP/s)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (cuda_kernel,
@@ -619,7 +673,10 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
                 for i in range(Lq))
     es = q.element_size()
     nbytes = es * (2 * B * Lq * H * hd + 2 * B * Lk * KV * hd)
-    b_ms, b_by = bound(nbytes, 4.0 * B * H * hd * pairs, dtype_name)
+    flops = 4.0 * B * H * hd * pairs
+    route = cuda_kernel(q.dtype, hd)
+    b_ms, b_by = (bound(nbytes, 3 * flops, "tf32") if route == "tf32x3"
+                  else bound(nbytes, flops, dtype_name))
     qh = q.transpose(1, 2)
     kh = k.transpose(1, 2).repeat_interleave(H // KV, dim=1)
     vh = v.transpose(1, 2).repeat_interleave(H // KV, dim=1)
@@ -628,11 +685,18 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
     mask = ki <= qi
     if window is not None:
         mask &= ki > qi - window
-    masked_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask))
-    library_ms = masked_ms if Lq != Lk or window is not None else time_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True))
-    route = cuda_kernel(q.dtype, hd)
+
+    def masked():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    def library():
+        if Lq != Lk or window is not None:
+            return masked()
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib_err = max_err(library().transpose(1, 2), ref)
+    masked_ms = time_ms(masked)
+    library_ms = (masked_ms if Lq != Lk or window is not None
+                  else time_ms(library))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {
         "Lq": Lq, "Lk": Lk, "H": H, "KV": KV, "hd": hd, "dtype": dtype_name,
@@ -645,12 +709,18 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
         "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True,
                                                   window=window), iters=3),
         "library_ms": library_ms, "library_masked_ms": masked_ms,
+        "library_kernels": library_kernels(library),
+        "library_max_abs_err": lib_err,
         "bound_ms": b_ms, "bound_by": b_by,
+        "bound_fma_ms": (bound(nbytes, flops, "float32")[0]
+                         if dtype_name == "float32" else None),
     }
 
 
-# Small untimed shapes that reach every branch of the two flash kernels:
-# (B, Lq, Lk, H, KV, hd, dtype, keyword arguments, k/v buffer length)
+# Small untimed shapes that reach every branch of the three flash kernels:
+# (B, Lq, Lk, H, KV, hd, dtype, keyword arguments, k/v buffer length); a
+# ``qk_scale`` keyword scales q and k (``_attn_inputs``), the rest go to
+# ``flash_attention``
 FLASH_BRANCHES = [
     (1, 256, 256, 8, 8, 64, "bfloat16", {}, None),            # hd 64, G = 1
     (1, 256, 256, 8, 8, 128, "bfloat16", {}, None),           # hd 128, G = 1
@@ -664,9 +734,9 @@ FLASH_BRANCHES = [
      {"causal": False, "window": 50}, None),
     (2, 77, 333, 8, 2, 128, "bfloat16", {}, 700),             # prefix
     (2, 200, 450, 8, 2, 64, "bfloat16", {}, 600),             # prefix
-    (2, 77, 333, 8, 2, 128, "float32", {}, 700),              # fma: fp32
     (1, 256, 256, 4, 2, 32, "bfloat16", {}, None),            # fma: hd 32
     (2, 77, 333, 16, 8, 256, "float32", {"window": 100}, 700),  # fma: hd 256
+    (1, 100, 130, 4, 2, 96, "float32", {}, None),             # fma: hd 96
     (1, 300, 300, 32, 16, 128, "bfloat16", {"window": 128}, None),  # gemma3
     # bf16 at hd 256 (gemma3-12b): wgmma, 384 threads, 64-key tiles
     (1, 256, 256, 8, 8, 256, "bfloat16", {}, None),           # G = 1
@@ -685,14 +755,41 @@ FLASH_BRANCHES = [
     (2, 130, 130, 16, 8, 256, "bfloat16", {}, 200),           # prefix, B = 2
     (2, 77, 333, 16, 8, 256, "bfloat16", {"window": 100}, 700),
     (1, 512, 1100, 4, 2, 256, "bfloat16", {"window": 1024}, 1300),
+    # fp32 at hd 16-128: three TF32 products on mma.sync, 128-row q tiles
+    (1, 256, 256, 8, 8, 64, "float32", {}, None),             # hd 64, G = 1
+    (1, 256, 256, 8, 8, 128, "float32", {}, None),            # hd 128, G = 1
+    (1, 300, 300, 16, 4, 128, "float32", {}, None),           # G = 4, ragged
+    (1, 300, 300, 40, 8, 128, "float32", {}, None),           # G = 5
+    (1, 200, 200, 16, 2, 64, "float32", {}, None),            # G = 8
+    (1, 17, 17, 4, 1, 128, "float32", {}, None),              # ragged, G = 4
+    (1, 9, 25, 4, 2, 64, "float32", {}, None),                # ragged chunk
+    (1, 40, 40, 4, 2, 128, "float32", {}, None),              # Lq < 64
+    (1, 300, 300, 8, 2, 128, "float32", {"window": 40}, None),
+    (1, 300, 300, 8, 4, 64, "float32", {"window": 20}, None),  # < a tile
+    (1, 200, 264, 8, 2, 128, "float32", {"softcap": 30.0}, None),
+    (1, 130, 300, 8, 2, 64, "float32", {"causal": False}, None),
+    (1, 130, 300, 8, 2, 128, "float32",
+     {"causal": False, "window": 50}, None),
+    (2, 77, 333, 8, 2, 128, "float32", {}, 700),              # prefix, B = 2
+    (2, 200, 450, 8, 2, 64, "float32", {}, 600),              # prefix, B = 2
+    (1, 512, 512, 8, 2, 128, "float32", {"qk_scale": 4.0}, None),  # peaked
+    (1, 512, 512, 8, 2, 64, "float32", {"qk_scale": 4.0}, None),
+    # the reduced configs' head dims: 16 (4 heads) and 32 (2 heads)
+    (1, 100, 100, 4, 4, 16, "float32", {}, None),
+    (2, 9, 40, 4, 1, 16, "float32", {"window": 16}, 64),      # chunk prefix
+    (1, 100, 100, 2, 1, 32, "float32", {"window": 16}, None),
+    (1, 130, 300, 2, 2, 32, "float32", {"causal": False}, None),
 ]
 
 
 def flash_route(dtype_name: str, hd: int) -> str:
-    """The CUDA kernel a flash call must take: the tensor cores for bf16
-    at hd 64, 128 and 256, the FMA kernel for the rest."""
-    return ("wgmma" if dtype_name == "bfloat16" and hd in (64, 128, 256)
-            else "fma")
+    """The CUDA kernel a flash call must take: ``wgmma`` (the tensor cores)
+    for bf16 at hd 64, 128 and 256; ``tf32x3`` (the tensor cores, three
+    TF32 products per fp32 product) for fp32 at hd 16, 32, 64 and 128; the
+    fp32 FMA kernel, ``fma``, for the rest."""
+    if dtype_name == "bfloat16":
+        return "wgmma" if hd in (64, 128, 256) else "fma"
+    return "tf32x3" if hd in (16, 32, 64, 128) else "fma"
 
 
 def flash_branch_case(B, Lq, Lk, H, KV, hd, dtype_name, kw, buf_len, seed):
@@ -700,12 +797,15 @@ def flash_branch_case(B, Lq, Lk, H, KV, hd, dtype_name, kw, buf_len, seed):
     from repro_torch.kernels.flash_attention.ops import (cuda_kernel,
                                                          flash_attention)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    q, k, v = _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len)
+    kw = dict(kw)
+    scale = kw.pop("qk_scale", 1.0)
+    q, k, v = _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len,
+                           scale)
     out = flash_attention(q, k, v, **kw)
     ref = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     return {"B": B, "Lq": Lq, "Lk": Lk, "H": H, "KV": KV, "hd": hd,
-            "dtype": dtype_name, **kw, "buf_len": buf_len,
+            "dtype": dtype_name, **kw, "buf_len": buf_len, "qk_scale": scale,
             "route": cuda_kernel(q.dtype, hd),
             "max_abs_err": max_err(out, ref)}
 
@@ -864,16 +964,16 @@ def check_kernels():
             kw = dict(kw)
             r = paged_width_case(kw.pop("B"), 500 + i, **kw)
         elif name == "flash_attention":
-            r = flash_case(dtype_name="bfloat16", seed=500 + i, **kw)
+            r = flash_case(**{"dtype_name": "bfloat16", **kw}, seed=500 + i)
         else:
             r = ssd_case(dtype_name="bfloat16", seed=500 + i, **kw)
         emit({"phase": "kernel_model", "name": name, "model": model, **r})
         cases.setdefault("model_rows", []).append(
             {"name": name, "model": model, **r})
         ok = (r["rel_err"] <= TOL["float32"] if name == "ssd"
-              else r["max_abs_err"] <= TOL["bfloat16"])   # NaN fails too
-        if name == "flash_attention":
-            ok = ok and r["route"] == flash_route("bfloat16", r["hd"])
+              else r["max_abs_err"] <= TOL[r["dtype"]])
+        if name == "flash_attention":                     # NaN fails too
+            ok = ok and r["route"] == flash_route(r["dtype"], r["hd"])
         if not ok:
             raise AssertionError(f"{name} at {model}'s shape disagrees with "
                                  f"its plain version: {r}")
@@ -882,6 +982,8 @@ def check_kernels():
             emit({"phase": "kernel", "name": name, **r})
             ok = (r["rel_err"] <= TOL["float32"] if name == "ssd"
                   else r["max_abs_err"] <= TOL[r["dtype"]])   # NaN fails
+            if name == "flash_attention":
+                ok = ok and r["route"] == flash_route(r["dtype"], r["hd"])
             if not ok:
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {r}")
@@ -1048,16 +1150,20 @@ def check_reduced(arch: str):
 # ---------------------------------------------------------------------------
 
 # (arch, slots per engine or None for the size's 8, periods of the stage or
-# None for all): qwen3-32b's 65.5 GB of bf16 weights leave room for 2 x 4
-# slots of 4096 tokens (8.6 GB of KV); jamba-v0.1-52b's four periods are
-# 102.9 GB, two (16 of 32 layers) 52.0 GB; gemma3-27b (54.0 GB) holds 8
-# slots per engine because its 52 window layers keep 1024-row rings;
-# mixtral-8x22b's 56 one-layer periods are 281.3 GB, 8 of them 40.9 GB
-SERVED = (("llama3.1-8b", None, None), ("mamba2-1.3b", None, None),
-          ("qwen3-32b", 4, None), ("minicpm-2b", None, None),
-          ("deepseek-v2-lite-16b", None, None), ("jamba-v0.1-52b", None, 2),
-          ("gemma3-27b", None, None), ("gemma3-12b", None, None),
-          ("mixtral-8x22b", None, 8))
+# None for all, dtype or None for the size's bf16): qwen3-32b's 65.5 GB of
+# bf16 weights leave room for 2 x 4 slots of 4096 tokens (8.6 GB of KV);
+# jamba-v0.1-52b's four periods are 102.9 GB, two (16 of 32 layers) 52.0
+# GB; gemma3-27b (54.0 GB) holds 8 slots per engine because its 52 window
+# layers keep 1024-row rings; mixtral-8x22b's 56 one-layer periods are
+# 281.3 GB, 8 of them 40.9 GB.  llama3.1-8b is served a second time in
+# fp32, the JAX engine's dtype (32.1 GB of weights, 17.2 GB of pages):
+# its prefill runs the split-TF32 flash route
+SERVED = (("llama3.1-8b", None, None, None), ("mamba2-1.3b", None, None, None),
+          ("qwen3-32b", 4, None, None), ("minicpm-2b", None, None, None),
+          ("deepseek-v2-lite-16b", None, None, None),
+          ("jamba-v0.1-52b", None, 2, None), ("gemma3-27b", None, None, None),
+          ("gemma3-12b", None, None, None), ("mixtral-8x22b", None, 8, None),
+          ("llama3.1-8b", None, None, "float32"))
 
 
 def served_config(arch: str, periods=None):
@@ -1069,21 +1175,25 @@ def served_config(arch: str, periods=None):
     return cfg if periods is None else cut_periods(cfg, periods)
 
 
-def serve_full_width(arch: str, card: str, max_batch=None, periods=None):
+def serve_full_width(arch: str, card: str, max_batch=None, periods=None,
+                     dtype_name=None):
     """``arch`` at full width on two engines of ``max_batch`` slots (the
     size's 8 unless given), at ``periods`` periods of its stage where
-    given, after the previous model's memory is freed."""
+    given, in ``dtype_name`` (the size's bf16 unless given), after the
+    previous model's memory is freed."""
     import gc
     import torch
     from repro_torch.launch import serve
     cfg = served_config(arch, periods)
+    dtype = (getattr(torch, dtype_name) if dtype_name
+             else serve.SIZES["full"]["dtype"])
     max_new, n_req = 32, 12
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engines = serve.build_engines(cfg, 2, "full", "cuda", seed=0,
-                                  max_batch=max_batch)
+                                  max_batch=max_batch, dtype=dtype)
     requests = serve.make_requests(cfg, n_req, max_new, "full", seed=0)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1107,7 +1217,8 @@ def serve_full_width(arch: str, card: str, max_batch=None, periods=None):
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in engines[0].params.parameters())
     res = {
-        "phase": "serve", "config": cfg.name, "dtype": "bfloat16",
+        "phase": "serve", "config": cfg.name,
+        "dtype": str(dtype).removeprefix("torch."),
         "n_params": cfg.param_count(), "num_layers": cfg.num_layers,
         "layers_by_cache": layer_counts(cfg),
         "max_batch": [e.max_batch for e in engines],
@@ -1149,6 +1260,7 @@ def serve_full_width(arch: str, card: str, max_batch=None, periods=None):
     steps = [sum(kind == "decode" for kind, _, _ in evs)
              for evs in report["events"]]
     graph = {"phase": "decode_graph", "config": cfg.name,
+             "dtype": res["dtype"],
              "capture_s": [e.capture_s for e in engines],
              "graph_replays": [e.graph_replays for e in engines],
              "decode_steps": steps, "median_tpot_s": res["median_tpot_s"],
@@ -1608,29 +1720,35 @@ def main() -> int:
                     for n, log in logs.items()},
           "flash_sass": tensor_core_count("flash_attention"),
           "ssd_sass": tensor_core_count("ssd")})
-    # gemma3-12b's prefill route: 128 O accumulators a consumer thread
-    hd256 = ptxas_report(logs["flash_attention"], "flash_wgmma_kernelILi256E")
-    emit({"phase": "ptxas", "kernel": "flash_wgmma_kernel<256>",
-          "report": hd256, "sass_top_register": sass_top_register(
-              "flash_attention", "flash_wgmma_kernelILi256E")})
-    spills = [int(n) for ln in hd256
-              for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
-    if not spills or any(spills) or any(
-            c in ln for ln in hd256 for c in ("C7512", "C7518")):
-        raise AssertionError(f"flash_wgmma_kernel<256> spills or serialises "
-                             f"its wgmma: {hd256}")
+    # gemma3-12b's prefill route (128 O accumulators a consumer thread)
+    # and the fp32 route at the served head dims
+    for kernel, hd in (("flash_wgmma_kernel", 256),
+                       ("flash_tf32x3_kernel", 64),
+                       ("flash_tf32x3_kernel", 128)):
+        mangled = f"{kernel}ILi{hd}E"
+        report = ptxas_report(logs["flash_attention"], mangled)
+        emit({"phase": "ptxas", "kernel": f"{kernel}<{hd}>",
+              "report": report, "sass_top_register": sass_top_register(
+                  "flash_attention", mangled)})
+        spills = [int(n) for ln in report for n in
+                  re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
+        if not spills or any(spills) or any(
+                c in ln for ln in report for c in ("C7512", "C7518")):
+            raise AssertionError(f"{kernel}<{hd}> spills or serialises its "
+                                 f"wgmma: {report}")
 
     cases = check_kernels()
     for arch in REDUCED_ARCHS:
         check_reduced(arch)
     launches, by_path = {}, {}
-    for arch, max_batch, periods in SERVED:
-        ran = serve_full_width(arch, card, max_batch, periods)
-        if arch in ("llama3.1-8b", "mamba2-1.3b"):
+    for arch, max_batch, periods, dtype_name in SERVED:
+        ran = serve_full_width(arch, card, max_batch, periods, dtype_name)
+        if arch in ("llama3.1-8b", "mamba2-1.3b") and dtype_name is None:
             launches.update({n: ran[n]
                              for n in path_kernels(get_config(arch))})
         cut = "" if periods is None else f" ({periods} periods)"
-        by_path[f"{arch}{cut} serve"] = ran
+        by_path[f"{arch}{cut}{' ' + dtype_name if dtype_name else ''} "
+                f"serve"] = ran
     prof, by_path["goodput profile (llama3.1-8b)"] = goodput_profile()
     pred = goodput_predictor()
     goodput_runs(pred, prof)
@@ -1639,17 +1757,21 @@ def main() -> int:
     by_path["minicpm-2b train eval"] = train_phase(card)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t6})
 
-    def line(name, route, source, replaces, row):
+    def line(name, route, source, replaces, row, launched=None):
         at_models = {r["model"]: {k: r[k] for k in ("ms", "bound_ms",
                                                      "bound_by", "plain_ms",
                                                      "library_ms")}
-                     for r in cases["model_rows"] if r["name"] == name}
+                     for r in cases["model_rows"]
+                     if r["name"] == name and r["dtype"] == row["dtype"]}
         return {"name": name, "route": route, "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": launches[name] if launched is None else launched,
                 "launches_by_path": {p: c[name] for p, c in by_path.items()},
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "cuda_kernel": row.get("route"),
+                "bound_fma_ms": row.get("bound_fma_ms"),
                 "at": {k: row[k] for k in row if k in
                        ("B", "L", "Lq", "Lk", "dtype", "ctx_sum",
                         "ctx_max")},
@@ -1658,15 +1780,22 @@ def main() -> int:
                  if r["dtype"] == "bfloat16" and r["B"] == 8)
     flash = next(r for r in cases["flash_attention"]
                  if r["dtype"] == "bfloat16" and r["Lq"] == 2000)
+    flash32 = next(r for r in cases["flash_attention"]
+                   if r["dtype"] == "float32" and r["Lq"] == 2000)
+    flash_src = ("src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention.cu")
+    flash_tpu = "src/repro/kernels/flash_attention/flash_attention.py:23"
     scan = next(r for r in cases["ssd"]
                 if r["dtype"] == "bfloat16" and r["L"] == 2048)
     emit({"kernels": [
         line("paged_attention", "cuda",
              "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention/paged_attention.py:33", paged),
-        line("flash_attention", "cuda",
-             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/flash_attention.py:23", flash),
+        line("flash_attention", "cuda", flash_src, flash_tpu, flash),
+        # the fp32 route: its launches are the fp32 llama3.1-8b serve's
+        dict(line("flash_attention", "cuda", flash_src, flash_tpu, flash32,
+                  by_path["llama3.1-8b float32 serve"]["flash_attention"]),
+             name="flash_attention_fp32"),
         line("ssd", "cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/ssd.py:20", scan),
     ], "not_ported": [], "smoke_s": time.perf_counter() - t_start})

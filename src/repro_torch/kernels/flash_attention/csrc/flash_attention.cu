@@ -20,8 +20,8 @@
 //   (3.35 TB/s), are the limit.  Only the tensor cores reach that bound:
 //   the fp32 CUDA cores peak at 67 TFLOP/s.
 //
-// Two kernels; the entry point routes by dtype and head dim
-// (flash_attention_uses_wgmma):
+// Three kernels; the entry point routes by dtype and head dim
+// (flash_attention_route):
 //
 // * bf16 with hd 64, 128 or 256 (llama3.1-8b, qwen2.5-14b, minicpm-2b,
 //   gemma3-27b; gemma3-12b at 256): flash_wgmma_kernel, warp-specialised
@@ -79,9 +79,41 @@
 //   bf16 outputs of kernel and plain version differ by at most one bf16
 //   step, within the bf16 tolerance of 2e-2 (PERF.md has the errors).
 //
-// * fp32 (any hd), and bf16 with hd 16, 32, 48, 80, 96 or 112:
-//   flash_kernel, the first port, on the fp32 CUDA cores.  fp32 on the
-//   tensor cores would be TF32, which breaks the 1e-4 fp32 tolerance.
+// * fp32 with hd 16, 32, 64 or 128 (the JAX engine's dtype: llama3.1-8b,
+//   minicpm-2b, the window layers, the reduced configs):
+//   flash_tf32x3_kernel, on the tensor cores with mma.sync.m16n8k8 TF32;
+//   like the other two it replaces _flash_kernel.  One TF32 product (10 mantissa bits) errs by ~1e-3 here, past the 1e-4
+//   fp32 tolerance, so every operand x is split into hi = x rounded to
+//   TF32 and lo = (x - hi) rounded to TF32, and each product is three,
+//   lo.hi + hi.lo + hi.hi, added small terms first into fp32 (lo.lo,
+//   ~2^-22 of it, is left out): fp32's accuracy (the card's errors against
+//   the plain version are in PERF.md) at three times TF32's work, so the
+//   bound is 3 x flops over TF32's 494.7 TFLOP/s, 0.199 ms for
+//   llama3.1-8b's 2000-token causal prefill.  Q, K, V and P are all split,
+//   P in registers, Q, K and V as each warp reads its fragments from
+//   shared memory.  One block of 256 threads per (128-row q tile, head,
+//   sequence), heaviest causal tiles first; each warp owns 16 q rows.  Q
+//   stays in shared memory; 64-key tiles of K and V come in with cp.async
+//   into two stages, the next tile loading while this one is used.  The
+//   fragments are read as 16-byte vectors: Q and K by head dim permuted
+//   within 16 (the same order on both sides of the sum), V by 4 columns
+//   of a row with the output columns permuted to match; row strides padded
+//   so those reads hit distinct banks.  S's accumulator layout is P V's A
+//   layout with each 8-key step's keys permuted (V's rows read to match),
+//   so P never leaves registers.  The online softmax, the masks, the
+//   ragged edges and the tail alignment are the wgmma kernel's, decided
+//   per warp: a warp skips a tile none of whose keys its rows see.  Rows
+//   past Lq or Lk load as zeros (cp.async zero-fill), so a prefix buf[:,
+//   :n] of a longer buffer is never read past n.  Bound on this card by
+//   instruction issue: the split is 5 integer and float instructions an
+//   element, and each warp splits every K and V element of every tile it
+//   reads (512 a thread a tile at hd 128, against 768 HMMA a warp), so
+//   the splits outnumber the products.  ptxas reports under 200 registers
+//   at hd 128 and no spill (chip_smoke.py phase 1 prints it); 256
+//   threads, one block an SM (210 KB of shared memory at hd 128).
+//
+// * fp32 with hd 48, 80, 96, 112 or 256, and bf16 with hd 16, 32, 48, 80,
+//   96 or 112: flash_kernel, the first port, on the fp32 CUDA cores.
 //   One block of 256 threads per (64-row q tile, head, sequence).  The q
 //   tile stays in shared memory; 64-key tiles of K and then V pass through
 //   one shared buffer (rows padded by one float against bank conflicts).
@@ -918,6 +950,376 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 at hd 16, 32, 64 and 128: split TF32 on mma.sync
+// ---------------------------------------------------------------------------
+
+constexpr int kTBQ = 128;      // q rows per block: 8 warps of 16
+constexpr int kTBK = 64;       // keys per K/V tile
+constexpr int kTThreads = 256;
+
+// Row strides (floats) and the V column grouping.  Q and K fragments are
+// 16-byte reads of rows g and g + 1 by lanes 4g + tig (a phase of 8
+// lanes): a stride of 16 mod 32 floats puts the 8 reads in 8 distinct
+// bank quads.  V fragments are reads of kNU floats from rows 2 tig and
+// 2 tig + 1: a stride of 4 mod 8 does the same for them.
+template <int HD>
+struct TCfg {
+  static constexpr int kLdQK = HD + ((16 - HD % 32) & 31);
+  static constexpr int kLdV = HD + 4;
+  static constexpr int kNU = HD >= 32 ? 4 : 2;  // n-tiles of a column group
+  static constexpr int kGW = 8 * kNU;           // columns of a group
+  static constexpr int kSmem =
+      4 * (kTBQ * kLdQK + 2 * kTBK * kLdQK + 2 * kTBK * kLdV);
+};
+
+// 16-byte copy to shared memory; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds finite values: add half of the 13 dropped bits'
+// unit and clear them.  Two integer instructions; ptxas expands the cvt
+// into a NaN test, selects and more, and the kernel is bound by issue.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo: hi is x rounded to TF32, lo the remainder rounded to TF32;
+// hi + lo holds x to about 2^-22 of it.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += A B, one m16n8k8 TF32 product with an fp32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B to about fp32 accuracy: lo.hi, then hi.lo, then hi.hi (the
+// small terms first); lo.lo, about 2^-22 of the product, is left out.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4],
+                                           uint32_t bhi0, uint32_t bhi1,
+                                           uint32_t blo0, uint32_t blo1) {
+  mma_tf32(d, alo, bhi0, bhi1);
+  mma_tf32(d, ahi, blo0, blo1);
+  mma_tf32(d, ahi, bhi0, bhi1);
+}
+
+// Shared memory: q [kTBQ][kLdQK], then two stages of K [kTBK][kLdQK] and two
+// of V [kTBK][kLdV], raw fp32 loaded with cp.async (rows past Lq or Lk are
+// zero-filled, never read).  Warp w owns q rows 16w..16w+15 of the block.
+// Fragments (g = lane / 4, tig = lane % 4; m16n8k8 layouts):
+// * S = Q K^T takes head dims 16 at a time: lane reads d = 16p + 4 tig ..
+//   + 3 of its rows as one 16-byte vector, and k-step 2p takes d + 0 and
+//   + 1 as its columns tig and tig + 4, k-step 2p + 1 takes d + 2 and + 3.
+//   Q and K use the same order, so the sum over d is unchanged.
+// * S's accumulator of n-tile j holds keys 8j + 2 tig and + 1 of rows g and
+//   g + 8; P V's k-step j takes them as its columns tig and tig + 4, so P
+//   goes from accumulator to A operand in place, and V's B operand reads
+//   rows 8j + 2 tig and 8j + 2 tig + 1.
+// * P V's n-tile grp * kNU + u, column g, is head dim grp * kGW + kNU g + u,
+//   so a lane reads kNU columns of a V row as one vector and ends up with
+//   2 kNU contiguous columns of O in each of its rows.
+template <int HD>
+__global__ void __launch_bounds__(kTThreads, 1)
+flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
+                    int Lq, int Lk, int H, int KV, long long sqb,
+                    long long skb, long long svb, long long sob, int causal,
+                    int window, float softcap, float scale) {
+  using C = TCfg<HD>;
+  constexpr int LQK = C::kLdQK, LV = C::kLdV, NU = C::kNU, GW = C::kGW;
+  extern __shared__ float4 smem_f4[];
+  float* qs = reinterpret_cast<float*>(smem_f4);
+  float* ks = qs + kTBQ * LQK;
+  float* vs = ks + 2 * kTBK * LQK;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTBQ;  // heaviest first
+  const int kvh = h / (H / KV);
+  const int off = Lk - Lq;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, tig = lane & 3;
+
+  const float* qb = q + b * sqb + (size_t)h * HD;
+  const float* kb = k + b * skb + (size_t)kvh * HD;
+  const float* vb = v + b * svb + (size_t)kvh * HD;
+  const size_t q_row = (size_t)H * HD, kv_row = (size_t)KV * HD;
+
+  // `rows` rows from `first` into dst; rows at or past `limit` are zeros
+  auto load_rows = [&](const float* base, size_t stride, int first,
+                       int limit, int rows, float* dst, int ld) {
+    constexpr int kChunks = HD / 4;
+    for (int i = tid; i < rows * kChunks; i += kTThreads) {
+      const int r = i / kChunks, c = i - r * kChunks;
+      const bool in = first + r < limit;
+      cp_async16(smem_u32(dst + r * ld + 4 * c),
+                 in ? base + (size_t)(first + r) * stride + 4 * c : base,
+                 in ? 16 : 0);
+    }
+  };
+
+  // the keys any row of this block can see, in whole tiles
+  const int k_lo = window > 0 ? max(0, q0 + off - window + 1) : 0;
+  const int k_hi = causal ? min(Lk, min(q0 + kTBQ, Lq) + off) : Lk;
+  const int kt0 = k_lo / kTBK * kTBK;
+  const int n_tiles = (k_hi - kt0 + kTBK - 1) / kTBK;
+
+  load_rows(qb, q_row, q0, Lq, kTBQ, qs, LQK);
+  load_rows(kb, kv_row, kt0, Lk, kTBK, ks, LQK);
+  load_rows(vb, kv_row, kt0, Lk, kTBK, vs, LV);
+  cp_async_commit();
+
+  const int r0 = q0 + 16 * warp;           // this warp's first q row
+  const bool live = r0 < Lq;
+  const int qi0 = r0 + g + off, qi1 = qi0 + 8;  // absolute positions
+  // the warp's first and last live positions: whether a tile counts or
+  // needs masks is decided for the whole warp
+  const int w_lo = r0 + off;
+  const int w_hi = min(r0 + 15, Lq - 1) + off;
+  // scores stay unscaled; exp(scale x - scale m) = 2^(mul x - mul m).
+  // With a softcap the capped, scaled score is what the max runs over.
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float mul = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+
+  float oacc[HD / 8][4];
+#pragma unroll
+  for (int t = 0; t < HD / 8; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[t][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i & 1;
+    const int kt = kt0 + i * kTBK;
+    // prefetch the next tile into the other stage, which every warp left
+    // at the barrier that closed the previous tile
+    if (i + 1 < n_tiles) {
+      load_rows(kb, kv_row, kt + kTBK, Lk, kTBK, ks + (st ^ 1) * kTBK * LQK,
+                LQK);
+      load_rows(vb, kv_row, kt + kTBK, Lk, kTBK, vs + (st ^ 1) * kTBK * LV,
+                LV);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    bool run = live;  // a tile all of whose keys are masked adds nothing
+    if (causal) run = run && kt <= w_hi;
+    if (window > 0) run = run && kt + kTBK - 1 > w_lo - window;
+    if (run) {
+      // ---- S = Q K^T: 8 n-tiles of 8 keys ----
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      const float* qw = qs + (16 * warp + g) * LQK + 4 * tig;
+      const float* kw = ks + st * kTBK * LQK + g * LQK + 4 * tig;
+#pragma unroll
+      for (int p = 0; p < HD / 16; ++p) {
+        const float4 x0 = *reinterpret_cast<const float4*>(qw + 16 * p);
+        const float4 x1 =
+            *reinterpret_cast<const float4*>(qw + 8 * LQK + 16 * p);
+        uint32_t ah[2][4], al[2][4];
+        split_tf32(x0.x, ah[0][0], al[0][0]);
+        split_tf32(x1.x, ah[0][1], al[0][1]);
+        split_tf32(x0.y, ah[0][2], al[0][2]);
+        split_tf32(x1.y, ah[0][3], al[0][3]);
+        split_tf32(x0.z, ah[1][0], al[1][0]);
+        split_tf32(x1.z, ah[1][1], al[1][1]);
+        split_tf32(x0.w, ah[1][2], al[1][2]);
+        split_tf32(x1.w, ah[1][3], al[1][3]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 y =
+              *reinterpret_cast<const float4*>(kw + 8 * j * LQK + 16 * p);
+          uint32_t bh[4], bl[4];
+          split_tf32(y.x, bh[0], bl[0]);
+          split_tf32(y.y, bh[1], bl[1]);
+          split_tf32(y.z, bh[2], bl[2]);
+          split_tf32(y.w, bh[3], bl[3]);
+          mma_3xtf32(s[j], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(s[j], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+
+      // ---- online softmax, in place on s: s[j][e] is row g (+8 for e >=
+      // 2), key kt + 8j + 2 tig + e % 2 ----
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = tanhf(s[j][e] * cap_in) * softcap;
+      }
+      // mask only tiles that cross the diagonal, the window's edge or Lk
+      if ((causal && kt + kTBK - 1 > w_lo) ||
+          (window > 0 && kt <= w_hi - window) || kt + kTBK > Lk) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ki = kt + 8 * j + 2 * tig + (e & 1);
+            const int qi = e < 2 ? qi0 : qi1;
+            bool ok = ki < Lk;
+            if (causal) ok = ok && ki <= qi;
+            if (window > 0) ok = ok && ki > qi - window;
+            if (!ok) s[j][e] = -INFINITY;
+          }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int x = 1; x <= 2; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      // a row that has seen no key yet keeps m = -inf and l = 0
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float mb0 = (mn0 == -INFINITY ? 0.f : mn0) * mul;
+      const float mb1 = (mn1 == -INFINITY ? 0.f : mn1) * mul;
+      const float a0 = ex2(fmaf(m0, mul, -mb0));
+      const float a1 = ex2(fmaf(m1, mul, -mb1));
+      m0 = mn0;
+      m1 = mn1;
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j][0] = ex2(fmaf(s[j][0], mul, -mb0));
+        s[j][1] = ex2(fmaf(s[j][1], mul, -mb0));
+        s[j][2] = ex2(fmaf(s[j][2], mul, -mb1));
+        s[j][3] = ex2(fmaf(s[j][3], mul, -mb1));
+        rs0 += s[j][0] + s[j][1];
+        rs1 += s[j][2] + s[j][3];
+      }
+      l0 = l0 * a0 + rs0;  // this thread's share; summed over the quad last
+      l1 = l1 * a1 + rs1;
+#pragma unroll
+      for (int t = 0; t < HD / 8; ++t) {
+        oacc[t][0] *= a0;
+        oacc[t][1] *= a0;
+        oacc[t][2] *= a1;
+        oacc[t][3] *= a1;
+      }
+
+      // ---- O += P V: 8 k-steps of 8 keys, P split like Q and K ----
+      const float* vw = vs + st * kTBK * LV + 2 * tig * LV + NU * g;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* v0 = vw + 8 * j * LV;  // key 8j + 2 tig
+#pragma unroll
+        for (int grp = 0; grp < HD / GW; ++grp) {
+          float x[NU], y[NU];  // rows 8j + 2 tig and 8j + 2 tig + 1
+          if constexpr (NU == 4) {
+            const float4 a = *reinterpret_cast<const float4*>(v0 + grp * GW);
+            const float4 c =
+                *reinterpret_cast<const float4*>(v0 + LV + grp * GW);
+            x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+            y[0] = c.x, y[1] = c.y, y[2] = c.z, y[3] = c.w;
+          } else {
+            const float2 a = *reinterpret_cast<const float2*>(v0 + grp * GW);
+            const float2 c =
+                *reinterpret_cast<const float2*>(v0 + LV + grp * GW);
+            x[0] = a.x, x[1] = a.y;
+            y[0] = c.x, y[1] = c.y;
+          }
+#pragma unroll
+          for (int u = 0; u < NU; ++u) {
+            uint32_t bh0, bl0, bh1, bl1;
+            split_tf32(x[u], bh0, bl0);
+            split_tf32(y[u], bh1, bl1);
+            mma_3xtf32(oacc[grp * NU + u], ph, pl, bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  if (!live) return;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+  // row g (half 0) and g + 8 (half 1): columns grp * GW + 2 NU tig .. + 2 NU
+  // - 1 hold oacc[grp * NU + u][2 half + c] at offset NU c + u
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= Lq) continue;
+    float* orow = o + b * sob + (size_t)r * q_row + (size_t)h * HD;
+#pragma unroll
+    for (int grp = 0; grp < HD / GW; ++grp) {
+      float out[2 * NU];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int u = 0; u < NU; ++u)
+          out[NU * c + u] = oacc[grp * NU + u][2 * half + c] * inv[half];
+#pragma unroll
+      for (int w = 0; w < 2 * NU / 4; ++w)
+        *reinterpret_cast<float4*>(orow + grp * GW + 2 * NU * tig + 4 * w) =
+            make_float4(out[4 * w], out[4 * w + 1], out[4 * w + 2],
+                        out[4 * w + 3]);
+    }
+  }
+}
+
+template <int HD>
+int launch_tf32x3(const void* q, const void* k, const void* v, void* o,
+                  int B, int Lq, int Lk, int H, int KV, long long sqb,
+                  long long skb, long long svb, long long sob, int causal,
+                  int window, float softcap, cudaStream_t stream) {
+  const int smem = TCfg<HD>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_tf32x3_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, (Lq + kTBQ - 1) / kTBQ, B);
+  flash_tf32x3_kernel<HD><<<grid, kTThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Lq, Lk, H, KV, sqb,
+      skb, svb, sob, causal, window, softcap, 1.0f / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -985,12 +1387,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// The three kernels a call can take (ops.py names them).
+enum Route { kFma = 0, kWgmma = 1, kTf32x3 = 2 };
+
 }  // namespace
 
-// Which kernel a call takes: 1 for the wgmma kernel (bf16 at hd 64, 128
-// or 256), 0 for the fp32 FMA kernel.
-extern "C" int flash_attention_uses_wgmma(int is_bf16, int hd) {
-  return is_bf16 && (hd == 64 || hd == 128 || hd == 256);
+// Which kernel a call takes: the wgmma kernel for bf16 at hd 64, 128 or
+// 256, the split-TF32 kernel for fp32 at hd 16, 32, 64 or 128, the FMA
+// kernel for the rest.
+extern "C" int flash_attention_route(int is_bf16, int hd) {
+  if (is_bf16) return hd == 64 || hd == 128 || hd == 256 ? kWgmma : kFma;
+  return hd == 16 || hd == 32 || hd == 64 || hd == 128 ? kTf32x3 : kFma;
 }
 
 // Batch strides are in elements; inside a sequence q/k/v/o are contiguous
@@ -1005,10 +1412,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int causal, int window, float softcap,
                                       int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (flash_attention_uses_wgmma(is_bf16, hd)) {
+  const int route = flash_attention_route(is_bf16, hd);
+  if (route == kWgmma) {
     decltype(&launch_wgmma<64>) fn = hd == 64    ? &launch_wgmma<64>
                                      : hd == 128 ? &launch_wgmma<128>
                                                  : &launch_wgmma<256>;
+    return fn(q, k, v, o, B, Lq, Lk, H, KV, sqb, skb, svb, sob, causal,
+              window, softcap, s);
+  }
+  if (route == kTf32x3) {
+    decltype(&launch_tf32x3<64>) fn = hd == 16   ? &launch_tf32x3<16>
+                                      : hd == 32 ? &launch_tf32x3<32>
+                                      : hd == 64 ? &launch_tf32x3<64>
+                                                 : &launch_tf32x3<128>;
     return fn(q, k, v, o, B, Lq, Lk, H, KV, sqb, skb, svb, sob, causal,
               window, softcap, s);
   }

@@ -3,13 +3,16 @@
 Counterpart of ``repro/kernels/flash_attention/ops.py`` (the jit wrapper
 of ``flash_attention_pallas``).  A CUDA tensor launches the hand-written
 kernel or raises; a CPU tensor takes the plain version in ``ref.py``.
-The C entry point picks the CUDA kernel by dtype and head dim
+The C entry point picks one of three CUDA kernels by dtype and head dim
 (:func:`cuda_kernel` reports which): bf16 at hd 64, 128 or 256 runs on the
-tensor cores (wgmma, TMA; at gemma3-12b's hd 256 with 384 threads, the
-consumers raised to 232 registers by setmaxnreg), everything else on the
-fp32 FMA kernel: fp32 at every head dim, and bf16 at 16, 32, 48, 80, 96
-and 112.  A launch that fails raises; no call retreats to the other
-kernel.  Head dims: multiples of 16 up to 128, and 256.
+tensor cores with ``wgmma`` (TMA; at gemma3-12b's hd 256 with 384 threads,
+the consumers raised to 232 registers by setmaxnreg); fp32 at hd 16, 32,
+64 or 128 runs on the tensor cores too, each fp32 product as three TF32
+products on ``mma.sync`` (every operand split into a TF32 high and low
+part, which keeps fp32's accuracy); the rest on the fp32 FMA kernel: fp32
+at 48, 80, 96, 112 and 256, bf16 at 16, 32, 48, 80, 96 and 112.  A launch
+that fails raises; no call retreats to another kernel.  Head dims:
+multiples of 16 up to 128, and 256.
 ``flash_attention.launches`` counts kernel launches.
 Forward only: with grad mode on, an input that requires grad raises
 (``_build.refuse_grad``), on the CPU too.
@@ -91,11 +94,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
 flash_attention.launches = 0
 
 
+_ROUTES = {0: "fma", 1: "wgmma", 2: "tf32x3"}
+
+
 def cuda_kernel(dtype, hd: int) -> str:
-    """Which CUDA kernel a call with this dtype and head dim launches:
-    ``"wgmma"`` (tensor cores: bf16 at hd 64, 128 and 256) or ``"fma"``
-    (fp32 CUDA cores: fp32 at every head dim, and bf16 at the others), as
-    the C entry point decides.  Builds the library on first use."""
-    f = _build.entry("flash_attention", "flash_attention_uses_wgmma",
-                     [_I, _I])
-    return "wgmma" if f(int(dtype == torch.bfloat16), hd) else "fma"
+    """Which CUDA kernel a call with this dtype and head dim launches, as
+    the C entry point decides: ``"wgmma"`` (bf16 at hd 64, 128 and 256),
+    ``"tf32x3"`` (fp32 at hd 16, 32, 64 and 128: three TF32 tensor-core
+    products per fp32 product) or ``"fma"`` (the fp32 CUDA cores: the
+    other head dims).  Builds the library on first use."""
+    f = _build.entry("flash_attention", "flash_attention_route", [_I, _I])
+    return _ROUTES[f(int(dtype == torch.bfloat16), hd)]

@@ -2,9 +2,11 @@
 
   PYTHONPATH=src python -m repro_torch.launch.profile_step \\
       [--arch llama3.1-8b] [--periods N] [--batch 8] [--prompt 1024] \\
-      [--steps 5] [--out build/profile_step] [--train]
+      [--steps 5] [--out build/profile_step] [--train] [--dtype float32]
 
-One engine (bf16, random weights from a seed; ``--arch`` takes every id
+One engine (bf16 unless ``--dtype float32``, the JAX engine's dtype,
+whose prefill runs the split-TF32 flash route; random weights from a
+seed; ``--arch`` takes every id
 of ``configs.ALL_ARCHS``, gemma3-27b's window layers included;
 ``--periods`` cuts a one-stage config's depth, as jamba-v0.1-52b and
 mixtral-8x22b need) admits ``--batch`` requests
@@ -15,7 +17,8 @@ trace reports like any kernel (the decode line adds ``graph_replays`` and
 ``capture_s``).  For each
 phase it prints one JSON line: wall ms per step, device busy ms per step
 (the union of kernel intervals in the trace), kernel launches per step,
-device ms per step by kernel name, largest first, and, for each of the
+device ms per step by kernel name, largest first, by kind (GEMMs, the
+port's kernels, softmax, the rest), and, for each of the
 port's own CUDA kernels that ran (``kernels/*/csrc``: names in the
 top-level ``(anonymous namespace)`` of those sources), its device ms and launches per
 step.  The traces go to ``--out``.
@@ -23,8 +26,7 @@ step.  The traces go to ``--out``.
 With ``--train`` it traces training instead: the config whole, fp32
 masters drawn from seed 0, ``--steps`` ``make_train_step`` calls on one
 ``SyntheticLM`` batch of ``--batch`` x 4096 tokens (a micro-batch of the
-grad-accumulation step at train_4k's length), after one untimed step; its
-line adds the step's device ms by kind (GEMMs, softmax, the rest).
+grad-accumulation step at train_4k's length), after one untimed step.
 """
 from __future__ import annotations
 
@@ -107,7 +109,12 @@ def _traced(phase: str, fn, steps: int, out: Path) -> dict:
         wall = time.perf_counter() - t0
     path = out / f"trace_{phase}.json"
     prof.export_chrome_trace(str(path))
-    return _summary(phase, _kernels(path), wall, steps)
+    line = _summary(phase, _kernels(path), wall, steps)
+    kinds = defaultdict(float)
+    for kind, ms in _kernels_by_kind(path):
+        kinds[kind] += ms / steps
+    line["device_ms_by_kind"] = dict(kinds)
+    return line
 
 
 TRAIN_SEQ = 4096
@@ -127,10 +134,7 @@ def _train_lines(cfg, args, dev, out: Path) -> list:
     step(model, opt, *batch)             # warm-up
     line = _traced("train_step", lambda: step(model, opt, *batch),
                    args.steps, out)
-    kinds = defaultdict(float)
-    for name, ms in _kernels_by_kind(out / "trace_train_step.json"):
-        kinds[name] += ms / args.steps
-    line.update(device_ms_by_kind=dict(kinds), seq=TRAIN_SEQ,
+    line.update(seq=TRAIN_SEQ,
                 tokens_per_step=args.batch * TRAIN_SEQ,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return [line]
@@ -143,14 +147,17 @@ _INDEX_KERNELS = ("scatter", "gather", "index_put", "indexing",
 
 
 def _kernels_by_kind(trace_path: Path):
-    """(kind, device ms) of every kernel: "gemm" (cuBLAS/CUTLASS matrix
-    products), "softmax", "reduce", "index" (gathers, scatters and indexed
-    writes, such as the embedding's backward), "copy" (copies, casts and
-    concatenations: PyTorch's ``CatArrayBatchedCopy``) or
-    "elementwise/other"."""
+    """(kind, device ms) of every kernel: "port" (the port's own kernels),
+    "gemm" (cuBLAS/CUTLASS matrix products), "softmax", "reduce", "index"
+    (gathers, scatters and indexed writes, such as the embedding's
+    backward), "copy" (copies, casts and concatenations: PyTorch's
+    ``CatArrayBatchedCopy``) or "elementwise/other"."""
+    ours = _port_kernel_names()
     for name, _, dur in _kernels(trace_path):
         low = name.lower()
-        kind = ("gemm" if any(k in low for k in ("gemm", "cutlass", "xmma",
+        hit = _ANON_KERNEL.search(name)
+        kind = ("port" if hit and hit.group(1) in ours
+                else "gemm" if any(k in low for k in ("gemm", "cutlass", "xmma",
                                                   "sm90_", "nvjet"))
                 else "softmax" if "softmax" in low
                 else "reduce" if "reduce" in low
@@ -169,6 +176,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", default="build/profile_step")
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     out = Path(args.out)
@@ -183,7 +192,8 @@ def main(argv=None):
                       num_layers=cfg.num_layers)
             print(json.dumps(ln), flush=True)
         return lines
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    params = init_params(cfg, seed=0, dtype=getattr(torch, args.dtype),
+                         device=dev)
     eng = InferenceEngine(cfg, params, max_batch=args.batch, max_len=4096,
                           device=dev)
     g = torch.Generator().manual_seed(0)
@@ -206,7 +216,7 @@ def main(argv=None):
                     capture_s=eng.capture_s)
     for ln in lines:
         ln.update(batch=args.batch, prompt=args.prompt, arch=args.arch,
-                  num_layers=cfg.num_layers)
+                  num_layers=cfg.num_layers, dtype=args.dtype)
         print(json.dumps(ln), flush=True)
     return lines
 

@@ -67,15 +67,19 @@ def cut_periods(cfg, periods: int):
 
 
 def build_engines(cfg, n_engines: int, size: str, device, seed: int = 0,
-                  max_batch: Optional[int] = None) -> List[InferenceEngine]:
+                  max_batch: Optional[int] = None,
+                  dtype: Optional[torch.dtype] = None) -> List[InferenceEngine]:
     """``n_engines`` engines over one shared weight set; odd-numbered ones
     stage prompts through chunked prefill.  ``max_batch`` overrides the
     size's slots per engine (qwen3-32b's 65.5 GB of bf16 weights leave
     room for two engines of 4 slots at ``max_len`` 4096 on an 80 GB
-    card, not of 8)."""
+    card, not of 8); ``dtype`` the size's weight and cache dtype (fp32 at
+    full width is the JAX engine's own dtype: llama3.1-8b's 32.1 GB of
+    weights and 2 x 8 slots of 4096 tokens fit one card)."""
     s = SIZES[size]
     dev = resolve_device(device)
-    params = init_params(cfg, seed=seed, dtype=s["dtype"], device=dev)
+    params = init_params(cfg, seed=seed, dtype=dtype or s["dtype"],
+                         device=dev)
     return [InferenceEngine(cfg, params,
                             max_batch=max_batch or s["max_batch"],
                             max_len=s["max_len"], page_size=s["page_size"],

@@ -210,6 +210,23 @@ def test_serve_launcher_reduced_on_cpu(capsys):
     assert "served 6 requests" in capsys.readouterr().out
 
 
+def test_build_engines_takes_a_dtype_over_the_sizes():
+    """``dtype`` overrides the size's weight and cache dtype (the card's
+    fp32 serve of full-width llama3.1-8b), and the engines serve in it."""
+    from repro_torch.launch import serve
+    cfg = reduce_config(get_config("llama3.1-8b"))
+    default = serve.build_engines(cfg, 1, "reduced", "cpu")
+    engines = serve.build_engines(cfg, 2, "reduced", "cpu",
+                                  dtype=torch.bfloat16)
+    assert default[0].params.dtype == torch.float32
+    assert all(p.dtype == torch.bfloat16
+               for p in engines[0].params.parameters())
+    assert engines[0].cache.k_pages.dtype == torch.bfloat16
+    report = serve.serve(engines, serve.make_requests(cfg, 4, 3, "reduced"))
+    assert sum(len(r.generated) for e in engines for r in e.completed) == 12
+    assert {0, 1} <= set(report["routed"])
+
+
 def test_profile_summary_merges_overlapping_kernels():
     from repro_torch.launch.profile_step import _summary
     kernels = [("gemm", 0.0, 10.0), ("attn", 5.0, 10.0), ("gemm", 30.0, 5.0)]
@@ -258,7 +275,10 @@ def test_profile_summary_counts_plain_port_kernels():
 
 def test_profile_kinds_tell_indexed_writes_from_copies(tmp_path):
     """``scatter`` contains ``cat``: gathers, scatters and indexed writes
-    are "index" kernels, and only copies and concatenations are copies."""
+    are "index" kernels, and only copies and concatenations are copies.
+    The port's own kernels are their own kind, so that a trace tells the
+    fp32 prefill's flash time from its GEMMs; PyTorch's kernels in an
+    anonymous namespace are not the port's."""
     from repro_torch.launch.profile_step import _kernels_by_kind
     kinds = {
         "void at::native::(anonymous namespace)::CatArrayBatchedCopy"
@@ -276,6 +296,10 @@ def test_profile_kinds_tell_indexed_writes_from_copies(tmp_path):
         "(float*)": "softmax",
         "void at::native::reduce_kernel<512, 1>(int)": "reduce",
         "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64": "gemm",
+        "cutlass_80_simt_sgemm_256x128_8x4_tn_align1": "gemm",
+        "void (anonymous namespace)::flash_tf32x3_kernel<128>(float const*, "
+        "int)": "port",
+        "(anonymous namespace)::ssd_state_pass_kernel(float*, int)": "port",
     }
     trace = tmp_path / "trace.json"
     trace.write_text(json.dumps({"traceEvents": [
