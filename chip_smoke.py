@@ -200,6 +200,36 @@ JAX.  Phases, each printing one JSON line:
    ``train_launcher``: ``launch.train.main`` for reduced llama3.1-8b, 100
    steps, checkpoints under the checkout's ``build/``: the final loss
    below ln 512, the last checkpoint restoring with every leaf finite.
+7. distributed: the port's distributed layer (``repro_torch.distributed``,
+   ``launch/specs.py``, ``launch/dryrun.py``, ``launch/sharded.py``).
+   (a) ``dryrun``: ``dryrun.run_cell`` in a fake world (256 ranks for the
+   16 x 16 mesh, 512 for 2 x 16 x 16), on meta tensors placed by the
+   sharding rules, one rank's work counted by ``launch/op_cost.py``:
+   internvl2-1b train_4k, mamba2-1.3b prefill_32k (B3 under ``local_map``)
+   and deepseek-v2-lite-16b decode_32k (the MoE ``local_map`` branch, MLA
+   sequence sharding) on the single-pod mesh, the decode cell on the
+   multi-pod one (``DRYRUN_CELLS``; the full grid of 72 records is host
+   work, ``python -m repro_torch.launch.dryrun --all --both-meshes``); each
+   line holds the record and its summary; the card must hold no more
+   memory after it.  (b) the sharded path on the card: a 1 x 1 (data,
+   model) mesh over NCCL at world size 1, full width, bf16 unless said, each
+   run held to the unsharded function on the same card:
+   ``sharded_prefill`` lines for llama3.1-8b (8 x 1024 tokens: B2 exactly
+   32 launches under ``local_map``), mamba2-1.3b (B3 exactly 48) and
+   deepseek-v2-lite-16b whole (every MoE layer through the ``local_map``
+   branch, an NCCL all-reduce at world size 1; no kernel), logits within
+   2e-2; ``sharded_ring_decode``: 8 greedy ``ring_decode_step``s of
+   llama3.1-8b over the ring cache of the sharded prefill against the
+   engine's decode step (B1 over pages) from the unsharded prefill, every
+   row's tokens equal up to a near tie (both top-2 gaps within
+   ``NEAR_TIE_ULPS`` bf16 spacings of the top logit: bf16 logits tie
+   exactly), after which that row is not compared further;
+   ``sharded_train``: one ``make_train_step`` of minicpm-2b whole (fp32
+   masters, 2 x 4096 tokens) on DTensor masters placed by the FSDP specs
+   against the unsharded step: the loss within 1e-4 relative, every
+   leaf's update at cosine >= 0.9999 with its norm within 0.1%.  Each
+   line gives the run's wall seconds and launches; the ``phase7_done``
+   line the phase's seconds; the process group is destroyed at its end.
 
 Then the ``kernels`` line (``smoke_s``: the run's seconds so far, the
 build included; ``launches``: the count from the phase-4 run of
@@ -207,8 +237,8 @@ llama3.1-8b or mamba2-1.3b, whichever runs each kernel, in bf16;
 ``flash_attention_fp32``, the split-TF32 route, with the fp32
 llama3.1-8b serve's count; ``cuda_kernel``: the flash route of the
 line's row; ``launches_by_path``:
-each path's count, every phase-4 model's, the phase-5 profile's and
-phase 6's evaluation;
+each path's count, every phase-4 model's, the phase-5 profile's,
+phase 6's evaluation and phase 7's sharded runs;
 ``at_model_rows``: the kernel's timed rows at the other served models'
 shapes, in the line's dtype), the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -1695,6 +1725,308 @@ def train_phase(card: str) -> dict:
     return evals
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the distributed layer: the dry run, and the sharded path on the
+# card
+# ---------------------------------------------------------------------------
+
+# (multi-pod, arch, shape): one cell of each kind on the single-pod mesh
+# (a train cell takes 16-175 s of host time there): the cheapest train
+# cell, the B3 prefill, the MoE local_map + MLA decode; on the multi-pod
+# mesh the decode cell (its train and prefill cells take 71-365 s of host
+# time, DTensor planning redistributions over three mesh dims)
+DRYRUN_CELLS = ((False, "internvl2-1b", "train_4k"),
+                (False, "mamba2-1.3b", "prefill_32k"),
+                (False, "deepseek-v2-lite-16b", "decode_32k"),
+                (True, "deepseek-v2-lite-16b", "decode_32k"))
+SHARD_B, SHARD_L, SHARD_STEPS = 8, 1024, 8
+NEAR_TIE_ULPS = 2     # a top-2 gap two kernels' bf16 rounding may reverse
+
+
+def dryrun_phase():
+    """(a) The dry run on the production meshes (16 x 16 and 2 x 16 x 16)
+    in a fake world of 256 and 512 ranks: each cell of ``DRYRUN_CELLS``,
+    one summary record each.  Host work: nothing on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    mem0 = torch.cuda.memory_allocated()
+    for multi_pod, arch, shape in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi_pod, save=False)
+        emit({"phase": "dryrun", "summary": dryrun._summary_line(rec),
+              **rec})
+        if not (rec["flops_per_device"] > 0
+                and rec["memory"]["argument_bytes"] > 0):
+            raise AssertionError(f"empty dry-run record: {rec}")
+    dist.destroy_process_group()
+    if torch.cuda.memory_allocated() != mem0:
+        raise AssertionError("the dry run allocated on the card")
+
+
+def _path_counts():
+    return {n: f.launches for n, f in wrappers().items()}
+
+
+def _zero_counts():
+    for f in wrappers().values():
+        f.launches = 0
+
+
+def _top2(logits):
+    """(top-2 gap, bf16 spacing at the top logit) of one row of logits."""
+    top = logits.float().topk(2, dim=-1).values
+    lead = max(abs(float(top[0])), 2.0 ** -126)
+    return float(top[0] - top[1]), 2.0 ** (math.floor(math.log2(lead)) - 7)
+
+
+def _sharded_prefill(arch: str, ctx, card: str, want: dict, before=None):
+    """``prefill`` of ``SHARD_B`` x ``SHARD_L`` random prompts through
+    ``arch`` at full width in bf16, unsharded and then with the model
+    placed on ``ctx``'s mesh; the sharded run's logits within 2e-2 of the
+    unsharded ones, its launches exactly ``want`` and, for a MoE config,
+    every MoE layer through the ``local_map`` branch.  ``before(model,
+    logits, states)`` runs on the unsharded model and its prefill first.
+    Returns (model, sharded logits, sharded states, the sharded run's
+    counts, what ``before`` returned)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharded as SH
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import init_params, prefill
+    _free_card()
+    cfg = get_config(arch)
+    model = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (SHARD_B, SHARD_L), generator=g,
+                         device="cuda")
+    with torch.no_grad():
+        ref_logits, ref_states = prefill(model, toks)
+    extra = before(model, ref_logits, ref_states) if before else None
+    del ref_states
+    SH.place_model(model, ctx, fsdp=False)
+    moe_calls = []
+    real = L._moe_sharded
+    L._moe_sharded = lambda *a: moe_calls.append(1) or real(*a)
+    try:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, states = prefill(model, SH.place_batch(toks, ctx),
+                                     ctx=ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _path_counts()
+    finally:
+        L._moe_sharded = real
+    err = max_err(SH.full(logits), ref_logits)
+    n_moe = sum(b.ffn == "moe" for b in cfg.layer_list())
+    res = {"phase": "sharded_prefill", "config": cfg.name,
+           "mesh": dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.mesh.shape)),
+           "backend": torch.distributed.get_backend(), "batch": SHARD_B,
+           "prompt_len": SHARD_L, "wall_s": wall, "launches": counts,
+           "moe_local_map_calls": len(moe_calls), "max_abs_err": err,
+           "tol": TOL["bfloat16"], "nvidia_smi": card}
+    emit(res)
+    if not (err <= TOL["bfloat16"] and counts == want
+            and len(moe_calls) == n_moe):
+        raise AssertionError(f"sharded prefill failed: {res}, launches "
+                             f"wanted {want}, {n_moe} MoE layers")
+    return model, logits, states, counts, extra
+
+
+def _paged_decode(model, ref_logits, ref_states):
+    """The engine's decode step (B1 over a paged cache) for ``SHARD_STEPS``
+    greedy steps after the unsharded prefill: tokens [B, 1 + steps] and
+    each step's logits."""
+    import torch
+    from repro_torch.engine.kv_cache import PagedKVCache
+    from repro_torch.models.model import decode_step
+    cfg = model.cfg
+    max_len = SHARD_L + SHARD_STEPS + 16
+    cache = PagedKVCache(cfg, SHARD_B * -(-max_len // 16), 16,
+                         slots=SHARD_B, max_len=max_len, dtype=model.dtype,
+                         device="cuda")
+    for b in range(SHARD_B):
+        cache.allocate(b, SHARD_L)
+        idx = cache.token_index(b, 0, SHARD_L)
+        for layer, (k, v) in enumerate(ref_states):
+            cache.write(layer, idx, k[b], v[b])
+    nxt = ref_logits.argmax(-1)
+    toks_out, logits_out = [nxt], [ref_logits]
+    with torch.no_grad():
+        for _ in range(SHARD_STEPS):
+            for b in range(SHARD_B):
+                cache.extend(b, 1)
+            logits = decode_step(model, nxt, cache.decode_view())
+            nxt = logits.argmax(-1)
+            toks_out.append(nxt)
+            logits_out.append(logits)
+    return torch.stack(toks_out, 1), logits_out
+
+
+def _ring_decode(model, ctx, logits, states):
+    """``ring_decode_step`` over the sharded prefill's ring cache for
+    ``SHARD_STEPS`` greedy steps: tokens [B, 1 + steps], each step's
+    logits (whole), wall seconds and launches."""
+    import torch
+    from repro_torch.launch import sharded as SH
+    from repro_torch.models.model import ring_decode_step, to_ring_cache
+    cfg = model.cfg
+    max_len = SHARD_L + SHARD_STEPS
+    cache = SH.place_cache(to_ring_cache(cfg, states, max_len, SHARD_L), cfg,
+                           ctx, max_len)
+    full = SH.full(logits)
+    nxt = full.argmax(-1)
+    toks_out, logits_out = [nxt], [full]
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for _ in range(SHARD_STEPS):
+            step_logits, cache = ring_decode_step(
+                model, SH.place_batch(nxt[:, None], ctx), cache, ctx)
+            full = SH.full(step_logits)
+            nxt = full.argmax(-1)
+            toks_out.append(nxt)
+            logits_out.append(full)
+    torch.cuda.synchronize()
+    return (torch.stack(toks_out, 1), logits_out,
+            time.perf_counter() - t0, _path_counts())
+
+
+def _compare_tokens(ring, ring_logits, paged, paged_logits) -> dict:
+    """Greedy tokens of the ring decode against the paged one, row by row
+    up to the first difference; a difference must be a near tie (both
+    paths' top-2 logit gaps within ``NEAR_TIE_ULPS`` bf16 spacings of
+    their top logit), after which the rows diverge and are not compared
+    further."""
+    flips, bad, compared = [], [], 0
+    for b in range(ring.shape[0]):
+        for t in range(ring.shape[1]):
+            compared += 1
+            if int(ring[b, t]) == int(paged[b, t]):
+                continue
+            (g_r, u_r), (g_p, u_p) = (_top2(ring_logits[t][b]),
+                                      _top2(paged_logits[t][b]))
+            tie = g_r <= NEAR_TIE_ULPS * u_r and g_p <= NEAR_TIE_ULPS * u_p
+            (flips if tie else bad).append(
+                {"row": b, "step": t, "top2_gap_ring": g_r,
+                 "top2_gap_paged": g_p, "bf16_spacing": max(u_r, u_p)})
+            break
+    return {"tokens_compared": compared, "near_tie_flips": flips,
+            "mismatches": bad}
+
+
+def _sharded_train(ctx, card: str):
+    """One ``make_train_step`` of minicpm-2b at full width (fp32 masters,
+    seed 0, batch 2 x 4096), unsharded and then on DTensor masters placed
+    by the FSDP specs: the loss within 1e-4 relative, and every leaf's
+    update (new less old) at cosine >= 0.9999 with its norm within 0.1%
+    of the unsharded one's (phase 6 (a)'s fp32 limits)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import SyntheticLM
+    from repro_torch.distributed.context import NULL_CTX
+    from repro_torch.launch import sharded as SH
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config("minicpm-2b")
+    batch = [torch.from_numpy(a).to("cuda") for a in SyntheticLM(
+        cfg.vocab_size, seed=0).batch(0, TRAIN_MICRO, TRAIN_SEQ)]
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=100,
+                       schedule="wsd")
+    runs = []
+    for sharded in (False, True):
+        _free_card()
+        model = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+        old = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        args = batch
+        if sharded:
+            SH.place_model(model, ctx, fsdp=True)
+            args = [SH.place_batch(t, ctx) for t in batch]
+        opt = init_opt_state(dict(model.named_parameters()))
+        step = make_train_step(cfg, ocfg, ctx if sharded else NULL_CTX,
+                               ce_chunk=512)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step(model, opt, *args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {n: SH.full(p.detach()).cpu() - old[n]
+                 for n, p in model.named_parameters()}
+        runs.append((float(SH.full(m["loss"])), delta, wall, _path_counts(),
+                     torch.cuda.max_memory_allocated() / 1e9))
+        del model, opt, old, m
+    (loss0, d0, wall0, _, peak0), (loss1, d1, wall1, counts, peak1) = runs
+    worst = (1.0, 0.0, "")
+    for n in d0:
+        a, b = d0[n].cuda(), d1[n].cuda()
+        cos, norm, _ = _grad_gap(a, b)
+        if (cos, -norm) < (worst[0], -worst[1]):
+            worst = (cos, norm, n)
+    loss_rel = abs(loss1 - loss0) / abs(loss0)
+    res = {"phase": "sharded_train", "config": cfg.name,
+           "mesh": dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.mesh.shape)),
+           "batch": [TRAIN_MICRO, TRAIN_SEQ], "masters": "float32",
+           "loss_unsharded": loss0, "loss_sharded": loss1,
+           "loss_rel": loss_rel, "worst_update_cosine": worst[0],
+           "worst_update_norm_rel": worst[1], "worst_leaf": worst[2],
+           "wall_s_unsharded": wall0, "wall_s_sharded": wall1,
+           "peak_gb_unsharded": peak0, "peak_gb_sharded": peak1,
+           "launches": counts, "nvidia_smi": card}
+    emit(res)
+    if not (loss_rel <= TRAIN_TOL_F32["loss_rel"]
+            and worst[0] >= TRAIN_TOL_F32["cosine"]
+            and worst[1] <= TRAIN_TOL_F32["norm_rel"]
+            and not any(counts.values())):
+        raise AssertionError(f"sharded train step failed: {res}")
+    return counts
+
+
+def sharded_phase(card: str) -> dict:
+    """(b) The sharded path on the card: a 1 x 1 (data, model) mesh over
+    NCCL at world size 1 (one card holds one NCCL rank), each run held to
+    the unsharded function on the same card.  Returns each path's
+    launches."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharded as SH
+    SH.start_world(device="cuda")
+    ctx = SH.mesh_ctx(1, 1, device="cuda")
+    by_path = {}
+    none = {"flash_attention": 0, "paged_attention": 0, "ssd": 0}
+    # llama3.1-8b: B2 once per layer; then the ring decode against the
+    # engine's decode step (B1 over pages) from the unsharded prefill
+    model, logits, states, counts, (paged, paged_logits) = _sharded_prefill(
+        "llama3.1-8b", ctx, card, {**none, "flash_attention": 32},
+        before=_paged_decode)
+    by_path["llama3.1-8b sharded prefill"] = counts
+    ring, ring_logits, wall, counts = _ring_decode(model, ctx, logits, states)
+    res = {"phase": "sharded_ring_decode", "config": model.cfg.name,
+           "steps": SHARD_STEPS, "batch": SHARD_B, "wall_s": wall,
+           "launches": counts, "near_tie_ulps": NEAR_TIE_ULPS,
+           **_compare_tokens(ring, ring_logits, paged, paged_logits),
+           "nvidia_smi": card}
+    emit(res)
+    if res["mismatches"] or any(counts.values()):
+        raise AssertionError(f"ring decode disagrees with B1's: {res}")
+    by_path["llama3.1-8b sharded ring decode"] = counts
+    del model, logits, states, paged_logits, ring_logits
+    # mamba2-1.3b: B3 once per layer
+    by_path["mamba2-1.3b sharded prefill"] = _sharded_prefill(
+        "mamba2-1.3b", ctx, card, {**none, "ssd": 48})[3]
+    # deepseek-v2-lite-16b whole: MLA (no kernel) and the MoE local_map
+    # branch, an NCCL all-reduce at world size 1
+    by_path["deepseek-v2-lite-16b sharded prefill"] = _sharded_prefill(
+        "deepseek-v2-lite-16b", ctx, card, none)[3]
+    by_path["minicpm-2b sharded train step"] = _sharded_train(ctx, card)
+    dist.destroy_process_group()
+    _free_card()
+    return by_path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1756,6 +2088,10 @@ def main() -> int:
     t6 = time.perf_counter()
     by_path["minicpm-2b train eval"] = train_phase(card)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t6})
+    t7 = time.perf_counter()
+    dryrun_phase()
+    by_path.update(sharded_phase(card))
+    emit({"phase": "phase7_done", "seconds": time.perf_counter() - t7})
 
     def line(name, route, source, replaces, row, launched=None):
         at_models = {r["model"]: {k: r[k] for k in ("ms", "bound_ms",

@@ -5,7 +5,9 @@ testbed backends, minicpm-2b, qwen3-32b, and the stub-frontend
 internvl2-1b and musicgen-medium), the 5:1 local:global window configs
 gemma3-27b and gemma3-12b, the window + MoE mixtral-8x22b, the
 attention-free Mamba-2 model, the MLA + MoE deepseek-v2-lite-16b and the
-mamba/attention/MoE hybrid jamba-v0.1-52b."""
+mamba/attention/MoE hybrid jamba-v0.1-52b; and the dry run's cell grid
+(``ASSIGNED_ARCHS``, ``LONG_CONTEXT_ARCHS``, ``shape_applicable``,
+``assigned_cells``: :28-61)."""
 from __future__ import annotations
 
 import importlib
@@ -31,6 +33,20 @@ _REGISTRY = {
 
 ALL_ARCHS = tuple(_REGISTRY)
 
+# the dry run's grid (``repro/configs/__init__.py:28-61``), in the
+# reference's order, which ``_REGISTRY`` above does not keep
+ASSIGNED_ARCHS = ("gemma3-27b", "minicpm-2b", "gemma3-12b", "qwen3-32b",
+                  "jamba-v0.1-52b", "mamba2-1.3b", "deepseek-v2-lite-16b",
+                  "mixtral-8x22b", "internvl2-1b", "musicgen-medium")
+
+# long_500k runs only for archs with a sub-quadratic or bounded-KV path
+LONG_CONTEXT_ARCHS = frozenset({
+    "gemma3-27b", "gemma3-12b",            # 5:1 sliding:global
+    "jamba-v0.1-52b", "mamba2-1.3b",       # SSM / hybrid
+    "mixtral-8x22b",                       # sliding-window attention
+    "deepseek-v2-lite-16b",                # MLA compressed latent KV
+})
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
@@ -40,5 +56,22 @@ def get_config(name: str) -> ModelConfig:
         f"repro_torch.configs.{_REGISTRY[name]}").CONFIG
 
 
-__all__ = ["ALL_ARCHS", "SHAPES", "BlockSpec", "ModelConfig", "ShapeSpec",
-           "Stage", "get_config", "reduce_config", "uniform_stage"]
+def shape_applicable(arch: str, shape: str) -> bool:
+    """Whether an (arch x shape) cell is run (vs documented-skip)."""
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_ARCHS
+    return True
+
+
+def assigned_cells(include_skipped: bool = False):
+    """Yield (arch, shape_name) for the 10 x 4 grid: 36 cells run."""
+    for arch in ASSIGNED_ARCHS:
+        for shape in SHAPES:
+            if include_skipped or shape_applicable(arch, shape):
+                yield arch, shape
+
+
+__all__ = ["ALL_ARCHS", "ASSIGNED_ARCHS", "LONG_CONTEXT_ARCHS", "SHAPES",
+           "BlockSpec", "ModelConfig", "ShapeSpec", "Stage", "assigned_cells",
+           "get_config", "reduce_config", "shape_applicable",
+           "uniform_stage"]

@@ -126,6 +126,18 @@ def check(name: str, err: int) -> None:
                            f"({f(err).decode()})")
 
 
+# Callables (kernel name, flops, bytes) that an op counter
+# (``launch/op_cost.py``) registers while it counts: a wrapper called on
+# meta tensors computes nothing and reports its kernel's work here.
+COST_SINKS: list = []
+
+
+def record_cost(name: str, flops: float, nbytes: float) -> None:
+    """Report a kernel's flops and bytes to every registered counter."""
+    for sink in COST_SINKS:
+        sink(name, flops, nbytes)
+
+
 def check_aligned(*tensors) -> None:
     """The kernels read 16-byte vectors: refuse misaligned tensors."""
     for t in tensors:

@@ -15,11 +15,15 @@ that fails raises; no call retreats to another kernel.  Head dims:
 multiples of 16 up to 128, and 256.
 ``flash_attention.launches`` counts kernel launches.
 Forward only: with grad mode on, an input that requires grad raises
-(``_build.refuse_grad``), on the CPU too.
+(``_build.refuse_grad``), on the CPU too.  On meta tensors (the dry run)
+the wrapper computes nothing: it returns an empty output and reports the
+kernel's flops (4·H·hd per (q, k) pair under the mask) and bytes (q, k, v
+read once, the output written once) to ``_build.record_cost``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -72,11 +76,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     B, Lq, H, hd = q.shape
     Lk, KV = k.shape[1], k.shape[2]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        _build.record_cost(
+            "flash_attention",
+            4.0 * B * H * hd * attention_pairs(Lq, Lk, causal, window),
+            q.element_size() * (2 * q.numel() + 2 * k.numel()))
+        return out
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
     if B == 0 or Lq == 0:
         return out
     _build.check_aligned(q, k, v)
@@ -92,6 +102,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def attention_pairs(Lq: int, Lk: int, causal: bool = True,
+                    window: Optional[int] = None) -> int:
+    """The (q, k) pairs a call attends over: q row i at position
+    i + Lk - Lq, under the causal mask and the window."""
+    off = Lk - Lq
+    n = 0
+    for i in range(Lq):
+        hi = min(Lk, i + off + 1) if causal else Lk
+        lo = max(0, i + off + 1 - window) if window else 0
+        n += max(0, hi - lo)
+    return n
 
 
 _ROUTES = {0: "fma", 1: "wgmma", 2: "tf32x3"}

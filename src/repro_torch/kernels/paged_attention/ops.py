@@ -13,7 +13,12 @@ of 16 up to 128, and 256 (gemma3-12b): pass 1 runs bf16 on the tensor
 cores (mma.sync) and fp32 on the CUDA cores at every one of them.  The
 engine also calls it over window layers' per-slot rings.
 Forward only: with grad mode on, an input that requires grad raises
-(``_build.refuse_grad``), on the CPU too.
+(``_build.refuse_grad``), on the CPU too.  On meta tensors (a dry run)
+the wrapper computes nothing: it returns an empty output and reports to
+``_build.record_cost`` the work of every row at its table's full width
+(the context lengths are data it cannot read): 4·H·hd flops a (q, key)
+pair, and the bytes of q, the output, the tables and the K/V rows the
+tables name.
 """
 from __future__ import annotations
 
@@ -95,12 +100,19 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens):
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    context_lens)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     B, H, hd = q.shape
     P, page, KV, _ = k_pages.shape
     n_pages = block_tables.shape[1]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        keys = B * n_pages * page
+        _build.record_cost(
+            "paged_attention", 4.0 * H * hd * keys,
+            q.element_size() * (2 * q.numel() + 2 * keys * KV * hd)
+            + 4 * (block_tables.numel() + B))
+        return out
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
     if B == 0:
         return out
     _build.check_aligned(q, k_pages, v_pages)

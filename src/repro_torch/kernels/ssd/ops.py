@@ -6,7 +6,10 @@ a CPU tensor takes the plain version in ``ref.py``.  The kernel runs in
 three passes over fp32 workspaces that the wrapper allocates
 (:func:`workspace_shapes`); ``ssd.launches`` counts calls, one per call.
 Forward only: with grad mode on, an input that requires grad raises
-(``_build.refuse_grad``), on the CPU too.
+(``_build.refuse_grad``), on the CPU too.  On meta tensors (the dry run)
+the wrapper computes nothing: it returns empty outputs and reports the
+kernel's flops (:func:`scan_flops`) and bytes (inputs read once, outputs
+written once) to ``_build.record_cost``.
 """
 from __future__ import annotations
 
@@ -81,12 +84,18 @@ def ssd(x, dt, A, B_, C, *, chunk: int = 256):
     _build.refuse_grad("ssd", x, dt, A, B_, C)
     if x.device.type == "cpu":
         return ssd_ref(x, dt, A, B_, C, chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     Bsz, L, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        _build.record_cost(
+            "ssd", scan_flops(Bsz, L, H, P, G, N, chunk),
+            sum(t.numel() * t.element_size()
+                for t in (x, dt, A, B_, C, y, state)))
+        return y, state
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
     if Bsz == 0:
         return y, state
     _build.check_aligned(x, B_, C)
@@ -104,3 +113,15 @@ def ssd(x, dt, A, B_, C, *, chunk: int = 256):
 
 
 ssd.launches = 0
+
+
+def scan_flops(Bsz: int, L: int, H: int, P: int, G: int, N: int,
+               chunk: int) -> float:
+    """The scan's flops: C Bᵀ once per (batch, group, chunk), 2·N a causal
+    pair (the heads of a group share it); per (batch, head, chunk) the
+    intra-chunk product, 2·P a pair, and C·state and the state update,
+    4·Q·N·P."""
+    pairs = chunk * (chunk + 1) // 2
+    nc = L // chunk
+    return float(Bsz * G * nc * 2 * N * pairs
+                 + Bsz * H * nc * (2 * P * pairs + 4 * chunk * N * P))

@@ -2,14 +2,25 @@
 
 Counterparts of ``repro/models/layers.py``: ``rms_norm`` (:27-31) with its
 ``(1 + w)`` scale, the half-split ``rope`` (:38-48), ``init_attention`` and
-``_qkv`` with optional qk_norm (:59-116, without the sharding
-constraints), ``_sdpa`` (:119-132), ``attn_forward`` (:175-183),
-``attn_decode`` (:186-207), ``attn_chunk`` (:210-238), ``init_mla``,
-``_mla_q_and_latent``, ``mla_forward`` and ``mla_decode`` (:245-356),
-``init_ffn`` and ``ffn_forward`` (:363-381), ``init_moe``,
-``moe_capacity``, ``_moe_local`` and the plain branch of ``moe_forward``
-(:388-472, :527-535; the ``shard_map`` branch waits for the distributed
-layer).
+``_qkv`` with optional qk_norm and its sharding constraints (:59-116),
+``_sdpa`` (:119-132), ``attn_forward`` (:175-183), ``attn_decode``
+(:186-207; ``ring_attn_decode`` over the dense ring), ``attn_chunk``
+(:210-238), ``init_mla``, ``_mla_q_and_latent``, ``mla_forward`` and
+``mla_decode`` (:245-356), ``init_ffn`` and ``ffn_forward`` (:363-381),
+``init_moe``, ``moe_capacity``, ``_moe_local`` and both branches of
+``moe_forward`` (:388-535): the plain one, and the ``shard_map`` one as a
+``local_map`` over the mesh of a ``ShardCtx``.
+
+With an active ``ShardCtx`` the parameters and activations are DTensors
+(``distributed/sharding.py``) and ``ctx.constraint`` redistributes them
+where the reference constrains them.  Attention runs inside ``local_map``
+on each rank's shard (the flash kernel, or in training the plain
+``_sdpa_chunked``): the batch over the data axes and whole heads over the
+model axis (K/V regathered to whole heads where the reference would shard
+them by sequence or head_dim; a rank hands the kernel only the KV heads
+its own query heads read); so does the MoE dispatch, with the tokens on
+their (pod, data) shard and the expert FF dim over the model axis, the
+down-projection summed over it.
 
 Attention goes through the kernel wrappers: ``attn_forward`` and
 ``attn_chunk`` through ``flash_attention`` (full and window layers),
@@ -39,6 +50,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (NULL_CTX, ShardCtx, _is_dtensor,
+                                            contiguous_grads, replicated_like)
+from repro_torch.distributed.sharding import placements
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 
@@ -48,6 +62,15 @@ def rms_norm(x, w, eps: float = 1e-6):
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * (1.0 + w.float())).to(dt)
+
+
+def block_input(x, w, cfg: ModelConfig, ctx: ShardCtx = NULL_CTX):
+    """``rms_norm`` of the residual stream x [B, L, d] at a block's input,
+    under a mesh with its tokens gathered whole: the sequence-parallel
+    residual re-gathers before the block's projections (a matmul cannot
+    flatten a sharded token dim into its rows)."""
+    h = rms_norm(x, w, cfg.norm_eps)
+    return ctx.constraint(h, ctx.batch_spec_entry(x.shape[0]), None, None)
 
 
 def _act(name: str):
@@ -63,8 +86,8 @@ def rope(x, positions, theta: float):
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)
     ang = positions[..., None].float() * freqs               # [..., L, half]
-    cos = torch.cos(ang)[..., None, :]                       # [..., L, 1, half]
-    sin = torch.sin(ang)[..., None, :]
+    cos = replicated_like(torch.cos(ang)[..., None, :], x)   # [..., L, 1, half]
+    sin = replicated_like(torch.sin(ang)[..., None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -75,9 +98,20 @@ def frozen(tensors: dict) -> nn.ParameterDict:
         {k: nn.Parameter(v, requires_grad=False) for k, v in tensors.items()})
 
 
+class MetaGenerator:
+    """Stands in for a generator on the meta device, which has none: the
+    init functions then draw shapes only (the dry run's parameters)."""
+    device = torch.device("meta")
+
+
+def generator_of(gen):
+    """``gen``, or None for a ``MetaGenerator``."""
+    return None if isinstance(gen, MetaGenerator) else gen
+
+
 def _normal(gen: torch.Generator, shape, std: float, dtype):
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) * std).to(dtype)
+    return (torch.randn(shape, generator=generator_of(gen),
+                        dtype=torch.float32, device=gen.device) * std).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -100,18 +134,46 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator, dtype):
     return frozen(p)
 
 
-def _qkv(p, cfg: ModelConfig, x, positions):
+def _qkv(p, cfg: ModelConfig, x, positions, ctx: ShardCtx = NULL_CTX,
+         decode: bool = False):
     B, L, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).view(B, L, H, hd)
-    k = (x @ p["wk"]).view(B, L, KV, hd)
-    v = (x @ p["wv"]).view(B, L, KV, hd)
+    q = split_heads(x @ p["wq"], H, ctx)
+    k = split_heads(x @ p["wk"], KV, ctx)
+    v = split_heads(x @ p["wv"], KV, ctx)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    bspec = ctx.batch_spec_entry(B)
+    kv_tp = ctx.enabled and KV % ctx.tp_size == 0
+    if decode:
+        # KV heads that do not divide the model axis: replicate the
+        # one-token q, the cache being sharded on sequence
+        q = ctx.constraint(q, bspec, None, ctx.model_axis if kv_tp else None,
+                           None)
+        return q, k, v
+    if ctx.enabled:
+        # heads that do not divide: replicate q and shard K/V on sequence
+        q = ctx.constraint(q, bspec, None, ctx.model_axis_if_divides(H), None)
+        if kv_tp:
+            k = ctx.constraint(k, bspec, None, ctx.model_axis, None)
+            v = ctx.constraint(v, bspec, None, ctx.model_axis, None)
+        else:
+            seq = ctx.model_axis if L % ctx.tp_size == 0 else None
+            k = ctx.constraint(k, bspec, seq, None, None)
+            v = ctx.constraint(v, bspec, seq, None, None)
     return q, k, v
+
+
+def split_heads(t, n: int, ctx: ShardCtx = NULL_CTX):
+    """[B, L, n * hd] -> [B, L, n, hd].  A DTensor whose n heads do not
+    divide the model axis is first gathered over it: its shards need not
+    end on a head."""
+    if ctx.enabled and n % ctx.tp_size and _is_dtensor(t):
+        t = ctx.constraint(t, ctx.batch_spec_entry(t.shape[0]), None, None)
+    return t.reshape(*t.shape[:-1], n, t.shape[-1] // n)
 
 
 def _sdpa(q, k, v, mask, softcap: Optional[float] = None):
@@ -123,6 +185,7 @@ def _sdpa(q, k, v, mask, softcap: Optional[float] = None):
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * hd ** -0.5
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
+    mask = replicated_like(mask, scores)
     scores = scores.masked_fill(~mask[:, None, None], -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
@@ -168,19 +231,77 @@ def _sdpa_chunked(q, k, v, window: Optional[int], softcap: Optional[float],
 
 
 def attn_forward(p, cfg: ModelConfig, x, positions, window: Optional[int],
-                 train: bool = False):
+                 ctx: ShardCtx = NULL_CTX, train: bool = False):
     """Full-sequence causal attention: through the flash kernel (prefill),
-    or with ``train`` through the plain, differentiable ``_sdpa_chunked``.
-    Returns (y, (k, v)) so prefill can fill the cache."""
+    or with ``train`` through the plain, differentiable ``_sdpa_chunked``;
+    under a mesh either runs inside ``local_map``.  Returns (y, (k, v)) so
+    prefill can fill the cache."""
     B, L, _ = x.shape
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(p, cfg, h, positions)
-    if train:
+    h = block_input(x, p["ln"], cfg, ctx)
+    q, k, v = _qkv(p, cfg, h, positions, ctx)
+    if ctx.enabled and _is_dtensor(q):
+        y = _attend_sharded(q, k, v, window, cfg.logit_softcap, ctx, train)
+    elif train:
         y = _sdpa_chunked(q, k, v, window, cfg.logit_softcap)
     else:
         y = flash_attention(q, k, v, causal=True, window=window,
                             softcap=cfg.logit_softcap)
     return y.reshape(B, L, -1) @ p["wo"], (k, v)
+
+
+def local_heads(k, n_heads: int, n_local: int, rank: int):
+    """The KV heads (or B/C groups) of k [B, L, KV, ·] that query heads
+    ``rank * n_local`` .. ``(rank + 1) * n_local - 1`` of ``n_heads`` read,
+    head h reading ``h // (n_heads // KV)``: a slice where the local heads
+    cover whole groups or share one, else every head's own copy."""
+    G = n_heads // k.shape[2]
+    first = rank * n_local
+    if n_local % G == 0:
+        return k[:, :, first // G:(first + n_local) // G]
+    if G % n_local == 0:
+        return k[:, :, first // G:first // G + 1]
+    return k.repeat_interleave(G, dim=2)[:, :, first:first + n_local]
+
+
+def _attend_sharded(q, k, v, window, softcap, ctx: ShardCtx, train: bool):
+    """Attention on each rank's shard, under ``local_map``: through
+    ``flash_attention``, or with ``train`` the plain ``_sdpa_chunked``
+    (whose DTensor einsums would flatten sharded dims).  The batch is over
+    the data axes, q's whole heads over the model axis where they divide
+    it (else every rank runs all heads), K/V whole heads, sharded with q's
+    where the KV heads divide the axis too, else whole on every rank,
+    which hands the kernel only the heads its query heads read (and takes
+    back each rank's part of their gradients).  Returns [B, L, H * hd]."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    B, _, H, _ = q.shape
+    KV = k.shape[2]
+    bspec = ctx.batch_spec_entry(B)
+    q_ax = ctx.model_axis_if_divides(H)
+    kv_ax = ctx.model_axis_if_divides(KV) if q_ax else None
+    qp = placements((bspec, None, q_ax, None), ctx.mesh)
+    kp = placements((bspec, None, kv_ax, None), ctx.mesh)
+    kp_grad = kp
+    if q_ax and not kv_ax:
+        kp_grad = tuple(Partial() if a == ctx.model_axis else pl
+                        for a, pl in zip(ctx.mesh.mesh_dim_names, kp))
+
+    def body(ql, kl, vl):
+        ql, kl, vl = contiguous_grads(ql, kl, vl)
+        if q_ax and not kv_ax:
+            r = ctx.mesh.get_local_rank(ctx.model_axis)
+            kl, vl = (local_heads(t, H, ql.shape[2], r) for t in (kl, vl))
+        if train:
+            return _sdpa_chunked(ql, kl, vl, window, softcap)
+        y = flash_attention(ql.contiguous(), kl.contiguous(),
+                            vl.contiguous(), causal=True, window=window,
+                            softcap=softcap)
+        return y.reshape(*y.shape[:2], -1)
+    return local_map(body, out_placements=(placements((bspec, None, q_ax),
+                                                      ctx.mesh),),
+                     in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, kp_grad, kp_grad),
+                     device_mesh=ctx.mesh, redistribute_inputs=True)(q, k, v)
 
 
 def attn_decode(p, cfg: ModelConfig, x, k_pages, v_pages, block_tables,
@@ -232,17 +353,76 @@ def window_decode(p, cfg: ModelConfig, x, k_ring, v_ring, ring_tables,
     return y.reshape(B, 1, -1) @ p["wo"]
 
 
+def write_rows(cache, new, rows):
+    """Row ``rows[b]`` of cache[b] (cache [B, S, ...]) set to new[b], in
+    place: one indexed store, or on a DTensor cache the reference's masked
+    select (elementwise along a possibly sharded S)."""
+    B, S = cache.shape[:2]
+    if _is_dtensor(cache):
+        hit = torch.arange(S, device=rows.device)[None, :] == rows[:, None]
+        hit = hit.reshape(B, S, *(1,) * (cache.dim() - 2))
+        cache.copy_(torch.where(hit, new[:, None], cache))
+        return
+    idx = torch.arange(B, device=cache.device) * S + rows
+    cache.view(B * S, *cache.shape[2:])[idx] = new
+
+
+def ring_attn_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos,
+                     window: Optional[int], ctx: ShardCtx = NULL_CTX):
+    """One-token decode over a dense ring: the reference's ``attn_decode``.
+    x: [B, 1, d]; cache_k/v: [B, S, KV, hd], S = min(window, max_len) for a
+    window layer; pos: [B], the new token's position.  Writes the new K/V
+    at slot ``pos % S`` in place and attends over the valid slots (all once
+    the ring has wrapped) with the plain ``_sdpa``; RoPE is applied before
+    the cache, so ring order does not change the scores."""
+    S = cache_k.shape[1]
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q, k_new, v_new = _qkv(p, cfg, h, pos[:, None], ctx, decode=True)
+    slot = pos % S
+    write_rows(cache_k, k_new[:, 0], slot)
+    write_rows(cache_v, v_new[:, 0], slot)
+    ar = torch.arange(S, device=pos.device)[None, :]
+    valid = (ar <= pos[:, None]) | (pos[:, None] >= S)
+    if (ctx.enabled and _is_dtensor(cache_k)
+            and cfg.num_kv_heads % ctx.tp_size == 0
+            and not any(pl.is_shard(1) for pl in cache_k.placements)):
+        y = _ring_attend_sharded(q, cache_k, cache_v, valid, cfg.logit_softcap,
+                                 ctx)
+    else:
+        y = _sdpa(q, cache_k, cache_v, valid[:, None, :], cfg.logit_softcap)
+    return y @ p["wo"]
+
+
+def _ring_attend_sharded(q, cache_k, cache_v, valid, softcap, ctx: ShardCtx):
+    """``_sdpa`` of one token over the ring on each rank's shard, under
+    ``local_map``, where the cache holds whole KV heads over the model axis
+    and all of its rows (DTensor's einsum would flatten sharded dims); a
+    sequence-sharded cache stays with the DTensor ``_sdpa``, whose softmax
+    gathers only the scores."""
+    from torch.distributed.tensor.experimental import local_map
+    bspec = ctx.batch_spec_entry(q.shape[0])
+    M = ctx.model_axis
+    return local_map(
+        lambda ql, kl, vl, ml: _sdpa(ql, kl, vl, ml[:, None, :], softcap),
+        out_placements=(placements((bspec, None, M), ctx.mesh),),
+        in_placements=(placements((bspec, None, M, None), ctx.mesh),
+                       cache_k.placements, cache_v.placements,
+                       placements((bspec, None), ctx.mesh)),
+        device_mesh=ctx.mesh, redistribute_inputs=True)(
+            q, cache_k, cache_v, valid)
+
+
 def attn_chunk(p, cfg: ModelConfig, x, cache_k, cache_v, pos0: int,
-               window: Optional[int]):
+               window: Optional[int], ctx: ShardCtx = NULL_CTX):
     """Chunked prefill: extend a LINEAR (slot == position) staging cache by
     the C tokens of x [B, C, d] starting at ``pos0``; cache_k/v:
     [B, S, KV, hd] with S >= pos0 + C, written in place.  Flash attention
     sees K/V cut to ``pos0 + C`` rows, so its tail alignment
     (q_offset = Lk - Lq) puts the chunk's queries at pos0..pos0+C-1."""
     B, C, _ = x.shape
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    h = block_input(x, p["ln"], cfg, ctx)
     positions = (pos0 + torch.arange(C, device=x.device))[None].expand(B, C)
-    q, k_new, v_new = _qkv(p, cfg, h, positions)
+    q, k_new, v_new = _qkv(p, cfg, h, positions, ctx)
     cache_k[:, pos0:pos0 + C] = k_new
     cache_v[:, pos0:pos0 + C] = v_new
     y = flash_attention(q, cache_k[:, :pos0 + C], cache_v[:, :pos0 + C],
@@ -266,9 +446,11 @@ def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype,
     })
 
 
-def ffn_forward(p, cfg: ModelConfig, x):
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+def ffn_forward(p, cfg: ModelConfig, x, ctx: ShardCtx = NULL_CTX):
+    h = block_input(x, p["ln"], cfg, ctx)
     z = _act(cfg.act)(h @ p["w_gate"]) * (h @ p["w_up"])
+    z = ctx.constraint(z, ctx.batch_spec_entry(x.shape[0]), None,
+                       ctx.model_axis_if_divides(z.shape[-1]))
     return z @ p["w_down"]
 
 
@@ -297,11 +479,11 @@ def init_mla(cfg: ModelConfig, gen: torch.Generator, dtype):
     })
 
 
-def _mla_q_and_latent(p, cfg: ModelConfig, h, positions):
+def _mla_q_and_latent(p, cfg: ModelConfig, h, positions,
+                      ctx: ShardCtx = NULL_CTX):
     m = cfg.mla
     B, L, _ = h.shape
-    q = (h @ p["wq"]).view(B, L, cfg.num_heads,
-                           m.nope_head_dim + m.rope_head_dim)
+    q = split_heads(h @ p["wq"], cfg.num_heads, ctx)
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = (h @ p["w_dkv"]).split([m.kv_lora_rank, m.rope_head_dim],
@@ -311,7 +493,8 @@ def _mla_q_and_latent(p, cfg: ModelConfig, h, positions):
     return q_nope, q_rope, c_kv, k_rope
 
 
-def mla_forward(p, cfg: ModelConfig, x, positions, chunk: int = 512):
+def mla_forward(p, cfg: ModelConfig, x, positions, ctx: ShardCtx = NULL_CTX,
+                chunk: int = 512):
     """Full-sequence MLA (expanded form) over query chunks of ``chunk``, so
     the scores take [B, H, chunk, L] at most.  Any L: the last chunk may be
     short (the JAX layer asserts L % 512 == 0 above 512).  Returns (y,
@@ -319,23 +502,67 @@ def mla_forward(p, cfg: ModelConfig, x, positions, chunk: int = 512):
     m = cfg.mla
     B, L, _ = x.shape
     H = cfg.num_heads
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    q_nope, q_rope, c_kv, k_rope = _mla_q_and_latent(p, cfg, h, positions)
-    k_nope = (c_kv @ p["w_uk"]).view(B, L, H, m.nope_head_dim)
-    v = (c_kv @ p["w_uv"]).view(B, L, H, m.v_head_dim)
+    h = block_input(x, p["ln"], cfg, ctx)
+    q_nope, q_rope, c_kv, k_rope = _mla_q_and_latent(p, cfg, h, positions,
+                                                     ctx)
+    k_nope = split_heads(c_kv @ p["w_uk"], H, ctx)
+    v = split_heads(c_kv @ p["w_uv"], H, ctx)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    bspec = ctx.batch_spec_entry(B)
+    hspec = ctx.heads_spec(H, m.nope_head_dim)
+    if hspec is not None:
+        q_nope = ctx.constraint(q_nope, bspec, None, *hspec)
+        k_nope = ctx.constraint(k_nope, bspec, None, *hspec)
+        v = ctx.constraint(v, bspec, None, *hspec)
+    args = (q_nope, q_rope, k_nope, k_rope, v, scale, chunk)
+    if hspec == (ctx.model_axis, None) and _is_dtensor(q_nope):
+        y = _mla_attend_sharded(*args, ctx)
+    else:
+        y = _mla_attend(*args)
+    return y.reshape(B, L, -1) @ p["wo"], (c_kv, k_rope)
+
+
+def _mla_attend(q_nope, q_rope, k_nope, k_rope, v, scale: float, chunk: int):
+    """MLA's causal attention over query chunks: [B, L, H * v_head]."""
+    B, L, H, _ = q_nope.shape
     ys = []
     for q0 in range(0, L, chunk):
         qn, qr = q_nope[:, q0:q0 + chunk], q_rope[:, q0:q0 + chunk]
         scores = (torch.einsum("bqhd,bshd->bhqs", qn, k_nope)
                   + torch.einsum("bqhd,bsd->bhqs", qr, k_rope)
                   ).float() * scale
-        mask = causal_mask(qn.shape[1], L, offset=q0, device=x.device)
+        mask = replicated_like(
+            causal_mask(qn.shape[1], L, offset=q0, device=qn.device), qn)
         scores = scores.masked_fill(~mask[:, None], -1e30)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
         ys.append(torch.einsum("bhqs,bshd->bqhd", probs, v))
-    y = torch.cat(ys, dim=1).reshape(B, L, H * m.v_head_dim)
-    return y @ p["wo"], (c_kv, k_rope)
+    return torch.cat(ys, dim=1).reshape(B, L, -1)
+
+
+def _mla_attend_sharded(q_nope, q_rope, k_nope, k_rope, v, scale: float,
+                        chunk: int, ctx: ShardCtx):
+    """``_mla_attend`` on each rank's whole heads, under ``local_map``
+    (DTensor's einsums would flatten sharded dims); k_rope, which every
+    head reads, is whole on each rank and takes back each rank's part of
+    its gradient."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    bspec = ctx.batch_spec_entry(q_nope.shape[0])
+    M = ctx.model_axis
+    heads = placements((bspec, None, M, None), ctx.mesh)
+    kr = placements((bspec, None, None), ctx.mesh)
+    kr_grad = tuple(Partial() if a == M else pl
+                    for a, pl in zip(ctx.mesh.mesh_dim_names, kr))
+
+    def body(qn, qr, kn, kr_, v_):
+        return _mla_attend(*contiguous_grads(qn, qr, kn, kr_, v_), scale,
+                           chunk)
+    return local_map(
+        body, out_placements=(placements((bspec, None, M), ctx.mesh),),
+        in_placements=(heads, heads, heads, kr, heads),
+        in_grad_placements=(heads, heads, heads, kr_grad, heads),
+        device_mesh=ctx.mesh, redistribute_inputs=True)(
+            q_nope, q_rope, k_nope, k_rope, v)
 
 
 def mla_decode(p, cfg: ModelConfig, x, cache_ckv, cache_kr, context_lens):
@@ -352,10 +579,9 @@ def mla_decode(p, cfg: ModelConfig, x, cache_ckv, cache_kr, context_lens):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     pos = (context_lens.long() - 1).clamp_min(0)
     q_nope, q_rope, c_new, kr_new = _mla_q_and_latent(p, cfg, h, pos[:, None])
-    idx = torch.arange(B, device=x.device) * S + pos
-    cache_ckv.view(B * S, -1)[idx] = c_new[:, 0]
-    cache_kr.view(B * S, -1)[idx] = kr_new[:, 0]
-    w_uk = p["w_uk"].view(m.kv_lora_rank, H, m.nope_head_dim)
+    write_rows(cache_ckv, c_new[:, 0], pos)
+    write_rows(cache_kr, kr_new[:, 0], pos)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.nope_head_dim)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
     scores = (torch.einsum("bhr,bsr->bhs", q_lat, cache_ckv)
@@ -365,7 +591,7 @@ def mla_decode(p, cfg: ModelConfig, x, cache_ckv, cache_kr, context_lens):
     scores = scores.masked_fill(~valid[:, None, :], -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out_lat = torch.einsum("bhs,bsr->bhr", probs, cache_ckv)
-    w_uv = p["w_uv"].view(m.kv_lora_rank, H, m.v_head_dim)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim)
     y = torch.einsum("bhr,rhd->bhd", out_lat, w_uv).reshape(B, 1, -1)
     return y @ p["wo"]
 
@@ -402,14 +628,54 @@ def moe_capacity(T: int, K: int, E: int, cf: float) -> int:
     return int(min(T * K, max(-(-T * K * cf // E), 16)))
 
 
-def _moe_local(p, cfg: ModelConfig, xt, act):
+class _AllReduce(torch.autograd.Function):
+    """Sum (or mean) over mesh axis ``axis`` in the forward pass.  The
+    backward pass hands each rank the cotangent of the replicated result:
+    as it is for a sum, divided by the axis size for a mean."""
+
+    @staticmethod
+    def forward(fn_ctx, x, mesh, axis: str, op: str):
+        import torch.distributed._functional_collectives as funcol
+        fn_ctx.scale = 1.0 / mesh.size(mesh.mesh_dim_names.index(axis)) \
+            if op == "avg" else 1.0
+        return funcol.wait_tensor(funcol.all_reduce(
+            x, op, (mesh, mesh.mesh_dim_names.index(axis))))
+
+    @staticmethod
+    def backward(fn_ctx, g):
+        return g * fn_ctx.scale if fn_ctx.scale != 1.0 else g, None, None, None
+
+
+class _EnterModelParallel(torch.autograd.Function):
+    """The identity in the forward pass; the backward pass sums the
+    cotangent over mesh axis ``axis``: the input of a region whose ranks
+    each hold a slice of the weights (Megatron's f)."""
+
+    @staticmethod
+    def forward(fn_ctx, x, mesh, axis: str):
+        fn_ctx.mesh, fn_ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fn_ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        mesh = fn_ctx.mesh
+        return funcol.wait_tensor(funcol.all_reduce(
+            g.contiguous(), "sum",
+            (mesh, mesh.mesh_dim_names.index(fn_ctx.axis)))), None, None
+
+
+def _moe_local(p, cfg: ModelConfig, xt, act, axis_name: Optional[str] = None,
+               mesh=None):
     """Sort + capacity-dispatch MoE over tokens xt [T, d]: the (token,
     choice) rows sorted stably by expert fill [E, C, d] slots, C =
     ``moe_capacity``; an expert keeps its first C rows in flat order t·K + k
     and drops the rest.  Expert products are batched matmuls over the
     slots.  Every shape follows from T alone and nothing is read on the
     host, so decode can be captured in a CUDA graph.  Returns (y [T, d],
-    Switch aux loss)."""
+    Switch aux loss).  With ``axis_name`` (inside ``local_map`` over
+    ``mesh``) the experts' FF dims are this rank's slice of that axis, and
+    the down-projection is summed over it."""
     mo = cfg.moe
     T, d = xt.shape
     E, K = mo.num_experts, mo.top_k
@@ -430,11 +696,15 @@ def _moe_local(p, cfg: ModelConfig, xt, act):
     ar = torch.arange(C, device=xt.device)
     slot_rows = (starts[:, None] + ar[None, :]).clamp_max(M - 1)
     slot_valid = ar[None, :] < group_sizes[:, None]
-    xs = xt[token_of]                                              # [M, d]
+    xe = xt if axis_name is None else \
+        _EnterModelParallel.apply(xt, mesh, axis_name)
+    xs = xe[token_of]                                              # [M, d]
     slots = xs[slot_rows.reshape(-1)].view(E, C, d) \
         * slot_valid[..., None].to(xt.dtype)
     hidden = act(torch.bmm(slots, p["w_gate"])) * torch.bmm(slots, p["w_up"])
     out_slots = torch.bmm(hidden, p["w_down"])                     # [E, C, d]
+    if axis_name is not None:
+        out_slots = _AllReduce.apply(out_slots, mesh, axis_name, "sum")
     pos = torch.arange(M, device=xt.device) - starts[e_sorted]
     keep = pos < C
     out_sorted = out_slots[e_sorted, pos.clamp_max(C - 1)] \
@@ -446,15 +716,68 @@ def _moe_local(p, cfg: ModelConfig, xt, act):
     return y, aux
 
 
-def moe_forward(p, cfg: ModelConfig, x):
+def moe_forward(p, cfg: ModelConfig, x, ctx: ShardCtx = NULL_CTX):
     """x: [B, L, d] -> (y, aux_loss): every token of the batch routed
-    together, plus the shared experts where the config has them."""
+    together, plus the shared experts where the config has them.
+
+    With an active mesh (and ``use_shard_map_moe``, the batch dividing the
+    data axes and the expert FF dim the model axis) the dispatch runs under
+    ``local_map``: tokens stay on their (pod, data) shard, the expert FF
+    dims are sharded over the model axis, the down-projections are summed
+    over it, and aux is averaged over the data axes (the reference's
+    ``shard_map`` branch)."""
     B, L, d = x.shape
     act = _act(cfg.act)
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if (ctx.enabled and ctx.use_shard_map_moe and B % ctx.dp_size == 0
+            and cfg.moe.d_ff_expert % ctx.tp_size == 0):
+        return _moe_sharded(p, cfg, x, act, ctx)
+    h = block_input(x, p["ln"], cfg, ctx)
     y, aux = _moe_local(p, cfg, h.reshape(-1, d), act)
     y = y.view(B, L, d)
     if SHARED + "w_gate" in p:
         zs = act(h @ p[SHARED + "w_gate"]) * (h @ p[SHARED + "w_up"])
         y = y + zs @ p[SHARED + "w_down"]
     return y, aux
+
+
+def _moe_sharded(p, cfg: ModelConfig, x, act, ctx: ShardCtx):
+    """The ``shard_map`` branch of the reference's ``moe_forward``
+    (:489-526) as a ``local_map``.  Gradients: an expert weight's is this
+    data shard's part (summed over the data axes), the router's the same,
+    and the input's is whole on every model rank (the expert path's
+    cotangent summed over the model axis by ``_EnterModelParallel``)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh, M = ctx.mesh, ctx.model_axis
+    d = x.shape[-1]
+    bspec = ctx.data_axes if len(ctx.data_axes) > 1 else ctx.data_axes[0]
+    w_specs = {"router": (None, None),
+               "w_gate": (None, None, M), "w_up": (None, None, M),
+               "w_down": (None, M, None),
+               SHARED + "w_gate": (None, M), SHARED + "w_up": (None, M),
+               SHARED + "w_down": (M, None)}
+    names = [k for k in p.keys() if k != "ln"]
+    h_pl = placements((bspec, None, None), mesh)
+
+    def body(xt, *ws):
+        pp = dict(zip(names, ws))
+        xt2 = xt.reshape(-1, d)
+        y, aux = _moe_local(pp, cfg, xt2, act, axis_name=M, mesh=mesh)
+        if SHARED + "w_gate" in pp:
+            xs = _EnterModelParallel.apply(xt2, mesh, M)
+            zs = act(xs @ pp[SHARED + "w_gate"]) * (xs @ pp[SHARED + "w_up"])
+            y = y + _AllReduce.apply(zs @ pp[SHARED + "w_down"], mesh, M,
+                                     "sum")
+        for a in ctx.data_axes:
+            aux = _AllReduce.apply(aux, mesh, a, "avg")
+        return y.reshape(xt.shape), aux
+
+    h = block_input(x, p["ln"], cfg, ctx)
+    replicated = placements((), mesh)
+    return local_map(
+        body, out_placements=(h_pl, replicated),
+        in_placements=(h_pl,) + tuple(placements(w_specs[n], mesh)
+                                      for n in names),
+        in_grad_placements=(h_pl,) + tuple(ctx.data_partial(w_specs[n])
+                                           for n in names),
+        device_mesh=mesh, redistribute_inputs=True)(
+            h, *(p[n] for n in names))

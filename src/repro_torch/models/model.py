@@ -3,10 +3,12 @@
 Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
 ``padded_vocab`` (:45-50), ``init_params`` (:53-80), ``embed_tokens``
 (:177-184), ``model_forward`` (:187-196), ``lm_head_weight`` (:199-202),
-``logits_fn`` (:205-207), ``prefill`` (:210-226),
-``init_cache(ring=False)`` (:229-270), ``prefill_chunk`` (:273-344) and
-``decode_step`` (:373-438), with the blocks of ``_apply_block``
-(:87-122).  Differences:
+``logits_fn`` (:205-207), ``prefill`` (:210-226), ``init_cache``
+(:229-270), ``prefill_chunk`` (:273-344), ``ring_convert_cache`` (:347)
+and ``decode_step`` (:373-438, as ``ring_decode_step``; ``decode_step``
+here is the engine's paged step), with the blocks of ``_apply_block``
+(:87-122) and their sharding constraints under a ``ShardCtx``.
+Differences:
 
 * layers are a flat ``nn.ModuleList`` in ``cfg.layer_list()`` order, run by
   a Python loop (PyTorch runs eagerly; there is no scan to keep small);
@@ -24,6 +26,13 @@ Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
   it at one fixed shape and, on the card, replays it from a CUDA graph);
 * ``prefill_chunk`` takes only real tokens (no padding to a fixed shape)
   and one ``pos`` for the batch;
+* ``init_cache`` defaults to ``ring=False`` (the staging layout, stacked
+  over layers, that the engine and ``prefill_chunk`` use); ``ring=True``
+  gives the reference's per-layer ring layout, which ``ring_decode_step``
+  reads and updates in place, and which ``to_ring_cache`` builds from
+  ``prefill``'s states.  The ring layout has a batch dim to shard, which
+  the paged cache has not: the dry run's decode cells and the sharded
+  decode run it;
 * ``model_forward(..., train=True)`` is the reference's training forward
   (``_run_stages`` with ``remat``, :136-170): plain, differentiable
   attention and scan (``layers._sdpa_chunked``, ``ssd.ssd_chunked``), each
@@ -52,6 +61,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import (NULL_CTX, ShardCtx, _is_dtensor,
+                                            sharded_scope)
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
 
@@ -152,7 +163,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``convert.from_jax_params`` to compute with the JAX package's weights."""
     dev = resolve_device(device)
     check_supported(cfg)
-    gen = generator or torch.Generator(device=dev).manual_seed(seed)
+    if dev.type == "meta":       # shapes only: the dry run's parameters
+        gen = L.MetaGenerator()
+    else:
+        gen = generator or torch.Generator(device=dev).manual_seed(seed)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, parameters on {dev}")
     V, d = padded_vocab(cfg), cfg.d_model
@@ -183,17 +197,27 @@ def _top(model: Model, name: str, params: Optional[Dict] = None):
     return (params or {}).get(f"top.{name}", model.top[name])
 
 
+def _embed(w, tokens):
+    """Rows ``tokens`` of the table w; a DTensor table gathers through
+    ``F.embedding``, whose DTensor rule keeps a vocab-sharded table
+    sharded."""
+    if _is_dtensor(w):
+        return torch.nn.functional.embedding(tokens, w)
+    return w[tokens]
+
+
 def embed_tokens(model: Model, tokens, prefix_embeds=None,
-                 params: Optional[Dict] = None):
+                 params: Optional[Dict] = None, ctx: ShardCtx = NULL_CTX):
     """Token embeddings [B, S, d]; with ``prefix_embeds`` [B, n, d] (a
     config with ``n_prefix_embeds`` only), their projection comes first,
     [B, n + S, d].  ``params``: tensors by parameter name (``top.embed``,
     ``top.prefix_proj``) to use in place of the model's own."""
-    x = _top(model, "embed", params)[tokens]
+    x = _embed(_top(model, "embed", params), tokens)
     if model.cfg.n_prefix_embeds and prefix_embeds is not None:
         pre = prefix_embeds.to(x.dtype) @ _top(model, "prefix_proj", params)
         x = torch.cat([pre, x], dim=1)
-    return x
+    return ctx.constraint(x, ctx.batch_spec_entry(x.shape[0]),
+                          ctx.seq_entry(x.shape[1]), None)
 
 
 def lm_head_weight(model: Model, params: Optional[Dict] = None):
@@ -209,54 +233,76 @@ def logits_fn(model: Model, hidden):
     return hidden @ lm_head_weight(model)
 
 
-def _ffn(spec: BlockSpec, p, cfg: ModelConfig, x):
+def _ffn(spec: BlockSpec, p, cfg: ModelConfig, x, ctx: ShardCtx = NULL_CTX):
     """The layer's FFN output and its aux loss (0 unless MoE)."""
     if spec.ffn == "moe":
-        return L.moe_forward(p, cfg, x)
-    return L.ffn_forward(p, cfg, x), 0.0
+        return L.moe_forward(p, cfg, x, ctx)
+    return L.ffn_forward(p, cfg, x, ctx), 0.0
 
 
-def _run_layers(model: Model, x, positions, collect: bool):
+def _between_layers(x, ctx: ShardCtx):
+    """The residual stream's constraint after each layer: batch over the
+    data axes, tokens over the model axis (sequence parallelism)."""
+    return ctx.constraint(x, ctx.batch_spec_entry(x.shape[0]),
+                          ctx.seq_entry(x.shape[1]), None)
+
+
+def _run_layers(model: Model, x, positions, collect: bool,
+                ctx: ShardCtx = NULL_CTX):
     cfg = model.cfg
     states = []
     aux = torch.zeros((), device=x.device)
     for blk in model.layers:
         if blk.spec.mixer in ("full", "window"):
             y, st = L.attn_forward(blk.attn, cfg, x, positions,
-                                   blk.spec.window)
+                                   blk.spec.window, ctx)
         elif blk.spec.mixer == "mla":
-            y, st = L.mla_forward(blk.attn, cfg, x, positions)
+            y, st = L.mla_forward(blk.attn, cfg, x, positions, ctx)
         elif collect:
-            y, st = ssd.mamba_forward(blk.mixer, cfg, x, return_state=True)
+            y, st = ssd.mamba_forward(blk.mixer, cfg, x, ctx,
+                                      return_state=True)
         else:
-            y, st = ssd.mamba_forward(blk.mixer, cfg, x), None
+            y, st = ssd.mamba_forward(blk.mixer, cfg, x, ctx), None
         x = x + y
         if collect:
             states.append(st)
         if blk.ffn is not None:
-            y, a = _ffn(blk.spec, blk.ffn, cfg, x)
+            y, a = _ffn(blk.spec, blk.ffn, cfg, x, ctx)
             x, aux = x + y, aux + a
+        x = _between_layers(x, ctx)
     return L.rms_norm(x, model.top["final_norm"], cfg.norm_eps), states, aux
 
 
 def _train_layer(spec: BlockSpec, parts: dict, cfg: ModelConfig, x,
-                 positions):
-    """One layer of the training forward: (x, aux loss)."""
+                 positions, ctx: ShardCtx = NULL_CTX):
+    """One layer of the training forward: (x, aux loss).  Under a mesh each
+    block's output takes its cotangent with the tokens whole: the
+    sequence-sharded residual would hand it back sharded over the tokens,
+    which the block's last matmul cannot flatten into its rows."""
+    bspec = ctx.batch_spec_entry(x.shape[0])
     if spec.mixer in ("full", "window"):
         y, _ = L.attn_forward(parts["attn"], cfg, x, positions, spec.window,
-                              train=True)
+                              ctx, train=True)
     elif spec.mixer == "mla":
-        y, _ = L.mla_forward(parts["attn"], cfg, x, positions)
+        y, _ = L.mla_forward(parts["attn"], cfg, x, positions, ctx)
     else:
-        y = ssd.mamba_forward(parts["mixer"], cfg, x, train=True)
-    x = x + y
-    if "ffn" not in parts:
-        return x, 0.0
-    y, aux = _ffn(spec, parts["ffn"], cfg, x)
-    return x + y, aux
+        y = ssd.mamba_forward(parts["mixer"], cfg, x, ctx, train=True)
+    x = x + ctx.grad_constraint(y, bspec, None, None)
+    aux = 0.0
+    if "ffn" in parts:
+        y, aux = _ffn(spec, parts["ffn"], cfg, x, ctx)
+        x = x + ctx.grad_constraint(y, bspec, None, None)
+    return _between_layers(x, ctx), aux
 
 
-def model_forward(model: Model, tokens, prefix_embeds=None, *,
+def _positions(S: int, device):
+    """Positions 0 .. S-1 as [1, S]: every row of a batch shares them (RoPE
+    broadcasts them over the batch)."""
+    return torch.arange(S, device=device)[None]
+
+
+def model_forward(model: Model, tokens, prefix_embeds=None,
+                  ctx: ShardCtx = NULL_CTX, *,
                   train: bool = False, remat: bool = True,
                   params: Optional[Dict[str, torch.Tensor]] = None):
     """Teacher-forcing forward.  Returns (final_hidden [B, S, d], aux_loss):
@@ -273,29 +319,30 @@ def model_forward(model: Model, tokens, prefix_embeds=None, *,
         raise ValueError("params replace weights in the training forward "
                          "only")
     params = params or {}
-    x = embed_tokens(model, tokens, prefix_embeds, params)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    if not train:
-        x, _, aux = _run_layers(model, x, positions, collect=False)
-        return x, aux
-    aux = torch.zeros((), device=x.device)
-    for i, blk in enumerate(model.layers):
-        parts = {part: {k: params.get(f"layers.{i}.{part}.{k}", v)
-                        for k, v in getattr(blk, part).items()}
-                 for part in blk.parts}
-        if remat:
-            x, a = checkpoint(_train_layer, blk.spec, parts, model.cfg, x,
-                              positions, use_reentrant=False)
-        else:
-            x, a = _train_layer(blk.spec, parts, model.cfg, x, positions)
-        aux = aux + a
-    return (L.rms_norm(x, _top(model, "final_norm", params),
-                       model.cfg.norm_eps), aux)
+    with sharded_scope(ctx):
+        x = embed_tokens(model, tokens, prefix_embeds, params, ctx)
+        positions = _positions(x.shape[1], x.device)
+        if not train:
+            x, _, aux = _run_layers(model, x, positions, False, ctx)
+            return x, aux
+        aux = torch.zeros((), device=x.device)
+        for i, blk in enumerate(model.layers):
+            parts = {part: {k: params.get(f"layers.{i}.{part}.{k}", v)
+                            for k, v in getattr(blk, part).items()}
+                     for part in blk.parts}
+            if remat:
+                x, a = checkpoint(_train_layer, blk.spec, parts, model.cfg,
+                                  x, positions, ctx, use_reentrant=False)
+            else:
+                x, a = _train_layer(blk.spec, parts, model.cfg, x, positions,
+                                    ctx)
+            aux = aux + a
+        return (L.rms_norm(x, _top(model, "final_norm", params),
+                           model.cfg.norm_eps), aux)
 
 
-def prefill(model: Model, tokens,
-            prefix_embeds=None) -> Tuple[torch.Tensor, list]:
+def prefill(model: Model, tokens, prefix_embeds=None,
+            ctx: ShardCtx = NULL_CTX) -> Tuple[torch.Tensor, list]:
     """Process a prompt [B, S] (after ``prefix_embeds`` [B, n, d], if
     given: then S counts the n prefix positions too).  Returns (last-token
     logits [B, V], one decode state per layer): (k, v) of shape [B, S, KV,
@@ -304,29 +351,149 @@ def prefill(model: Model, tokens,
     rope]) for an MLA layer, for the engine to
     write into a latent-cache slot; (conv tail {"x", "B", "C"} [B, K-1, ·],
     SSM state [B, H, P, N] f32) for a mamba layer, for the engine to write
-    into a state slot."""
-    x = embed_tokens(model, tokens, prefix_embeds)
-    B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    x, states, _ = _run_layers(model, x, positions, collect=True)
-    return logits_fn(model, x[:, -1]), states
+    into a state slot.  Under a mesh the kernels run on each rank's shard
+    (``local_map``)."""
+    with sharded_scope(ctx):
+        x = embed_tokens(model, tokens, prefix_embeds, ctx=ctx)
+        positions = _positions(x.shape[1], x.device)
+        x, states, _ = _run_layers(model, x, positions, True, ctx)
+        x = ctx.constraint(x, ctx.batch_spec_entry(x.shape[0]), None, None)
+        return logits_fn(model, x[:, -1]), states
+
+
+def _ring_layer(cfg: ModelConfig, blk: BlockSpec, batch: int, max_len: int,
+                dtype, dev) -> dict:
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    if blk.mixer in ("full", "window"):
+        S = min(blk.window, max_len) if blk.window else max_len
+        shp = (batch, S, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": z(*shp), "v": z(*shp)}
+    if blk.mixer == "mla":
+        m = cfg.mla
+        return {"ckv": z(batch, max_len, m.kv_lora_rank),
+                "kr": z(batch, max_len, m.rope_head_dim)}
+    s = cfg.ssm
+    di, gn, K1 = s.d_inner(cfg.d_model), s.n_groups * s.d_state, s.d_conv - 1
+    return {"conv": {"x": z(batch, K1, di), "B": z(batch, K1, gn),
+                     "C": z(batch, K1, gn)},
+            "ssm": z(batch, s.n_heads(cfg.d_model), s.head_dim, s.d_state,
+                     dt=torch.float32)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype=torch.bfloat16, device="cuda") -> dict:
-    """Linear staging cache for ``prefill_chunk``: ``k``/``v`` of shape
-    [n_layers, batch, max_len, KV, hd] with slot == absolute position, and
-    ``pos``, the next position (one for the whole batch).  Window layers
-    stage here too, at full length; the engine moves their last rows into
-    the layer's ring when the prompt is complete (``WindowCache.write``,
-    the counterpart of ``ring_convert_cache``)."""
+               dtype=torch.bfloat16, device="cuda", ring: bool = False) -> dict:
+    """Empty cache.  ``ring=False``: the linear staging cache for
+    ``prefill_chunk``, ``k``/``v`` of shape [n_layers, batch, max_len, KV,
+    hd] with slot == absolute position, and ``pos``, the next position (one
+    for the whole batch).  Window layers stage here too, at full length;
+    the engine moves their last rows into the layer's ring when the prompt
+    is complete (``WindowCache.write``), ``ring_convert_cache`` into the
+    ring layout.
+
+    ``ring=True``: the reference's decode layout, one dict per layer:
+    ``k``/``v`` [batch, S, KV, hd] with S = min(window, max_len) for a window
+    layer (slot ``t % S``) and ``max_len`` for a full one; ``ckv``
+    [batch, max_len, kv_lora] and ``kr`` [batch, max_len, rope] for MLA;
+    ``conv`` {"x", "B", "C": [batch, K-1, ·]} and ``ssm`` [batch, H, P, N]
+    float32 for mamba; and ``pos`` int32 [batch], each row's next
+    position."""
     dev = resolve_device(device)
+    if ring:
+        return {"layers": [_ring_layer(cfg, blk, batch, max_len, dtype, dev)
+                           for blk in cfg.layer_list()],
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
     shp = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shp, dtype=dtype, device=dev),
             "v": torch.zeros(shp, dtype=dtype, device=dev), "pos": 0}
 
 
-def prefill_chunk(model: Model, cache: dict, tokens):
+def _to_ring(k, S: int):
+    """The last min(L, S) timesteps of k [B, L, ...] at slots t % S of a
+    ring of S, zero elsewhere: slices and a concatenation (no scatter)."""
+    Lt = k.shape[1]
+    if Lt <= S:
+        return torch.cat([k, k.new_zeros((k.shape[0], S - Lt) + k.shape[2:])],
+                         dim=1)
+    tail = k[:, Lt - S:]
+    shift = (Lt - S) % S          # tail row j goes to slot (Lt - S + j) % S
+    return torch.cat([tail[:, S - shift:], tail[:, :S - shift]], dim=1)
+
+
+def to_ring_cache(cfg: ModelConfig, states: list, max_len: int,
+                  length: int) -> dict:
+    """The ring cache (``init_cache(..., ring=True)``) of ``prefill``'s
+    states for prompts of ``length`` positions, as the reference's
+    ``prefill`` builds it (``_to_ring``)."""
+    layers = []
+    batch = None
+    for blk, st in zip(cfg.layer_list(), states):
+        if blk.mixer in ("full", "window"):
+            S = min(blk.window, max_len) if blk.window else max_len
+            layers.append({"k": _to_ring(st[0], S), "v": _to_ring(st[1], S)})
+        elif blk.mixer == "mla":
+            layers.append({"ckv": _to_ring(st[0], max_len),
+                           "kr": _to_ring(st[1], max_len)})
+        else:
+            layers.append({"conv": dict(st[0]), "ssm": st[1]})
+        batch = st[1].shape[0]
+    dev = states[0][1].device
+    return {"layers": layers,
+            "pos": torch.full((batch,), length, dtype=torch.int32,
+                              device=dev)}
+
+
+def ring_convert_cache(cfg: ModelConfig, cache: dict, max_len: int,
+                       length: int) -> dict:
+    """A finished staging cache (``init_cache(..., ring=False)``, as
+    ``prefill_chunk`` leaves it, ``length`` valid rows) in the ring layout
+    ``ring_decode_step`` reads: each attention layer's first ``length``
+    rows through ``_to_ring`` (a window layer keeps the last
+    min(length, window) rows at slots t % S)."""
+    layers = []
+    for i, blk in enumerate(cfg.layer_list()):
+        S = min(blk.window, max_len) if blk.window else max_len
+        layers.append({"k": _to_ring(cache["k"][i][:, :length], S),
+                       "v": _to_ring(cache["v"][i][:, :length], S)})
+    B = cache["k"].shape[1]
+    return {"layers": layers,
+            "pos": torch.full((B,), cache["pos"], dtype=torch.int32,
+                              device=cache["k"].device)}
+
+
+def ring_decode_step(model: Model, tokens, cache: dict,
+                     ctx: ShardCtx = NULL_CTX):
+    """One decode iteration over the ring cache (``init_cache(...,
+    ring=True)``): the reference's ``decode_step``.  tokens: [B, 1] int.
+    Each layer reads and updates its entry in place: attention over the
+    dense ring through the plain ``_sdpa``, MLA through ``mla_decode``,
+    mamba through ``mamba_decode``; ``pos`` advances by one.  Returns
+    (logits [B, V], cache)."""
+    cfg = model.cfg
+    pos = cache["pos"]
+    with sharded_scope(ctx):
+        x = _embed(model.top["embed"], tokens)
+        bspec = ctx.batch_spec_entry(x.shape[0])
+        x = ctx.constraint(x, bspec, None, None)
+        for blk, c in zip(model.layers, cache["layers"]):
+            if blk.spec.mixer in ("full", "window"):
+                y = L.ring_attn_decode(blk.attn, cfg, x, c["k"], c["v"], pos,
+                                       blk.spec.window, ctx)
+            elif blk.spec.mixer == "mla":
+                y = L.mla_decode(blk.attn, cfg, x, c["ckv"], c["kr"], pos + 1)
+            else:
+                y, _ = ssd.mamba_decode(blk.mixer, cfg, x, c["conv"], c["ssm"])
+            x = x + y
+            if blk.ffn is not None:
+                x = x + _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0]
+            x = ctx.constraint(x, bspec, None, None)
+        x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
+        logits = logits_fn(model, x[:, 0])
+        cache["pos"] = pos + 1
+    return logits, cache
+
+
+def prefill_chunk(model: Model, cache: dict, tokens, ctx: ShardCtx = NULL_CTX):
     """Extend the staging cache by one prompt chunk ``tokens`` [B, C] (all
     real tokens).  Writes K/V at ``cache["pos"]`` onward in place, advances
     ``pos`` by C and returns (logits at the chunk's last token [B, V],
@@ -342,15 +509,20 @@ def prefill_chunk(model: Model, cache: dict, tokens):
     if pos0 + C > cache["k"].shape[2]:
         raise ValueError(f"chunk ends at {pos0 + C}, past the staging cache "
                          f"of {cache['k'].shape[2]} positions")
-    x = embed_tokens(model, tokens)
-    for i, blk in enumerate(model.layers):
-        x = x + L.attn_chunk(blk.attn, cfg, x, cache["k"][i], cache["v"][i],
-                             pos0, blk.spec.window)
-        if blk.ffn is not None:
-            x = x + _ffn(blk.spec, blk.ffn, cfg, x)[0]
-    x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
-    cache["pos"] = pos0 + C
-    return logits_fn(model, x[:, -1]), cache
+    with sharded_scope(ctx):
+        x = _embed(model.top["embed"], tokens)
+        bspec = ctx.batch_spec_entry(B)
+        x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
+        for i, blk in enumerate(model.layers):
+            x = x + L.attn_chunk(blk.attn, cfg, x, cache["k"][i],
+                                 cache["v"][i], pos0, blk.spec.window, ctx)
+            if blk.ffn is not None:
+                x = x + _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0]
+            x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
+        x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
+        x = ctx.constraint(x, bspec, None, None)
+        cache["pos"] = pos0 + C
+        return logits_fn(model, x[:, -1]), cache
 
 
 def decode_step(model: Model, tokens, cache: dict):

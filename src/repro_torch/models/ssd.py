@@ -14,7 +14,11 @@ as the reference does (:103), where the kernel keeps float32.  The one-token
 decode update runs outside any kernel in JAX too, so here it is plain
 torch ops on the device, updating the states in place.  Parameters are
 ``nn.ParameterDict``s keyed like the JAX pytree; ``A_log``, ``D`` and
-``dt_bias`` are float32 in any weight dtype, as JAX keeps them.
+``dt_bias`` are float32 in any weight dtype, as JAX keeps them.  Under a
+``ShardCtx`` the projections are DTensors constrained where the reference
+constrains them (:142-163), and the kernel runs inside ``local_map`` on
+each rank's shard: the batch over the data axes, the heads over the model
+axis where they divide it, each rank holding the B/C groups its heads read.
 """
 from __future__ import annotations
 
@@ -24,8 +28,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import (NULL_CTX, ShardCtx, _is_dtensor,
+                                            contiguous_grads, replicated_like)
+from repro_torch.distributed.sharding import placements
 from repro_torch.kernels.ssd.ops import ssd
-from repro_torch.models.layers import _normal, frozen, rms_norm
+from repro_torch.models.layers import (_normal, block_input, frozen,
+                                       generator_of, local_heads, rms_norm,
+                                       split_heads)
 
 
 def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype):
@@ -35,7 +44,8 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype):
     gn = s.n_groups * s.d_state
     dev = gen.device
     std = d ** -0.5
-    u = torch.rand((nh,), generator=gen, dtype=torch.float32, device=dev)
+    u = torch.rand((nh,), generator=generator_of(gen), dtype=torch.float32,
+                   device=dev)
     dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
     kw = s.d_conv ** -0.5
     return frozen({
@@ -68,6 +78,26 @@ def _causal_conv(u, w, b):
     pad = F.pad(u, (0, 0, K - 1, 0))
     out = sum(pad[:, i:i + L] * w[i] for i in range(K))
     return F.silu(out + b)
+
+
+def _conv(u, w, b, ctx: ShardCtx = NULL_CTX):
+    """``_causal_conv``; under a mesh on each rank's shard (``local_map``):
+    the batch over the data axes, the channels over the model axis where
+    they divide it.  Gradients: u's on its own shard, w's and b's this
+    data shard's part (summed over the data axes)."""
+    if not (ctx.enabled and _is_dtensor(u)):
+        return _causal_conv(u, w, b)
+    from torch.distributed.tensor.experimental import local_map
+    ch = ctx.model_axis_if_divides(u.shape[-1])
+    u_pl = placements((ctx.batch_spec_entry(u.shape[0]), None, ch), ctx.mesh)
+    w_spec, b_spec = (None, ch), (ch,)
+    return local_map(
+        _causal_conv, out_placements=(u_pl,),
+        in_placements=(u_pl, placements(w_spec, ctx.mesh),
+                       placements(b_spec, ctx.mesh)),
+        in_grad_placements=(u_pl, ctx.data_partial(w_spec),
+                            ctx.data_partial(b_spec)),
+        device_mesh=ctx.mesh, redistribute_inputs=True)(u, w, b)
 
 
 def _heads(p, h):
@@ -104,8 +134,8 @@ def ssd_chunked(x, dt, A, B_, C, chunk: int):
     cb = torch.einsum("bcihn,bcjhn->bchij", Ch.to(f32), Bh.to(f32))
     seg_h = seg.transpose(2, 3)                # [B,nc,H,Q]
     diff = seg_h[..., :, None] - seg_h[..., None, :]
-    causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=x.device).tril()
+    causal = replicated_like(torch.ones((chunk, chunk), dtype=torch.bool,
+                                        device=x.device).tril(), x)
     decay = torch.exp(diff.masked_fill(~causal, float("-inf")))
     att = cb * decay * dtc.transpose(2, 3)[:, :, :, None, :]
     y_intra = torch.einsum("bchij,bcjhp->bcihp", att.to(x.dtype), xc)
@@ -117,7 +147,8 @@ def ssd_chunked(x, dt, A, B_, C, chunk: int):
 
     # inter-chunk recurrence over the chunk states: the state before each
     chunk_decay = torch.exp(last[:, :, 0, :])  # [B,nc,H]
-    h = torch.zeros((Bsz, H, Pd, N), dtype=f32, device=x.device)
+    h = replicated_like(torch.zeros((Bsz, H, Pd, N), dtype=f32,
+                                    device=x.device), x)
     before = []
     for c in range(nc):
         before.append(h)
@@ -131,43 +162,94 @@ def ssd_chunked(x, dt, A, B_, C, chunk: int):
     return y.reshape(Bsz, L, H, Pd), h
 
 
-def mamba_forward(p, cfg: ModelConfig, x, return_state: bool = False,
-                  train: bool = False):
+def _scan(xs, dt, A, Bv, Cv, chunk: int, train: bool):
+    """The chunked scan over L padded to the chunk (zero dt leaves the state
+    unchanged on the padding): y [B, L, H, P] f32 and the final state."""
+    L = xs.shape[1]
+    pad = (-L) % chunk
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bv = F.pad(Bv, (0, 0, 0, 0, 0, pad))
+        Cv = F.pad(Cv, (0, 0, 0, 0, 0, pad))
+    if train:
+        y, state = ssd_chunked(xs, dt, A, Bv, Cv, chunk)
+    else:
+        y, state = ssd(xs, dt, A, Bv, Cv, chunk=chunk)
+    return y[:, :L], state
+
+
+def _scan_sharded(xs, dt, A, Bv, Cv, chunk: int, ctx: ShardCtx,
+                  train: bool):
+    """``_scan`` on each rank's shard, under ``local_map``: through the
+    kernel, or with ``train`` the plain ``ssd_chunked`` (whose DTensor
+    einsums would flatten sharded dims).  Gradients: x's and dt's on their
+    own shard; A's this data shard's part; B's and C's also each model
+    rank's part where the heads are sharded but the groups are not."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    B, _, H, _ = xs.shape
+    G = Bv.shape[2]
+    bspec = ctx.batch_spec_entry(B)
+    h_ax = ctx.model_axis_if_divides(H)
+    g_ax = ctx.model_axis_if_divides(G) if h_ax else None
+
+    def pl(*spec):
+        return placements(spec, ctx.mesh)
+
+    def body(x, dt_, A_, B_, C_):
+        x, dt_, A_, B_, C_ = contiguous_grads(x, dt_, A_, B_, C_)
+        if h_ax and not g_ax:
+            r = ctx.mesh.get_local_rank(ctx.model_axis)
+            B_, C_ = (local_heads(t, H, x.shape[2], r) for t in (B_, C_))
+        return _scan(x.contiguous(), dt_.contiguous(), A_.contiguous(),
+                     B_.contiguous(), C_.contiguous(), chunk, train)
+    x_pl, dt_pl, bc = (pl(bspec, None, h_ax, None), pl(bspec, None, h_ax),
+                       pl(bspec, None, g_ax, None))
+    bc_grad = bc
+    if h_ax and not g_ax:
+        bc_grad = tuple(Partial() if a == ctx.model_axis else p
+                        for a, p in zip(ctx.mesh.mesh_dim_names, bc))
+    return local_map(
+        body, out_placements=(x_pl, pl(bspec, h_ax, None, None)),
+        in_placements=(x_pl, dt_pl, pl(h_ax), bc, bc),
+        in_grad_placements=(x_pl, dt_pl, ctx.data_partial((h_ax,)), bc_grad,
+                            bc_grad),
+        device_mesh=ctx.mesh, redistribute_inputs=True)(xs, dt, A, Bv, Cv)
+
+
+def mamba_forward(p, cfg: ModelConfig, x, ctx: ShardCtx = NULL_CTX,
+                  return_state: bool = False, train: bool = False):
     """Full-sequence Mamba-2 block.  x: [B, L, d] -> [B, L, d]; with
     ``return_state`` also (conv tail {"x", "B", "C"} of the raw projections
     [B, K-1, ·], final SSM state [B, H, P, N] f32) for the decode cache.
     The scan runs the ``ssd`` kernel wrapper, or with ``train`` the plain,
-    differentiable ``ssd_chunked``."""
+    differentiable ``ssd_chunked``; under a mesh either runs inside
+    ``local_map``."""
     s = cfg.ssm
     d = cfg.d_model
     di, nh = s.d_inner(d), s.n_heads(d)
     B, L, _ = x.shape
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    bspec = ctx.batch_spec_entry(B)
+    h = block_input(x, p["ln"], cfg, ctx)
     z, x_raw, B_raw, C_raw, dt_raw = _heads(p, h)
+    z = ctx.constraint(z, bspec, None, ctx.model_axis_if_divides(di))
+    x_raw = ctx.constraint(x_raw, bspec, None, ctx.model_axis_if_divides(di))
 
-    xs = _causal_conv(x_raw, p["conv_x"], p["conv_bx"])
-    Bv = _causal_conv(B_raw, p["conv_B"], p["conv_bB"])
-    Cv = _causal_conv(C_raw, p["conv_C"], p["conv_bC"])
-    xs = xs.reshape(B, L, nh, s.head_dim)
+    xs = _conv(x_raw, p["conv_x"], p["conv_bx"], ctx)
+    Bv = _conv(B_raw, p["conv_B"], p["conv_bB"], ctx)
+    Cv = _conv(C_raw, p["conv_C"], p["conv_bC"], ctx)
+    xs = split_heads(xs, nh, ctx)
     Bv = Bv.reshape(B, L, s.n_groups, s.d_state)
     Cv = Cv.reshape(B, L, s.n_groups, s.d_state)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-
-    # pad L to the chunk: zero dt leaves the state unchanged on the padding
-    pad = (-L) % s.chunk
-    if pad:
-        xs_p = F.pad(xs, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bv = F.pad(Bv, (0, 0, 0, 0, 0, pad))
-        Cv = F.pad(Cv, (0, 0, 0, 0, 0, pad))
+    xs = ctx.constraint(xs, bspec, None, ctx.model_axis_if_divides(nh), None)
+    if ctx.enabled and _is_dtensor(xs):
+        y, state = _scan_sharded(xs, dt, A, Bv, Cv, s.chunk, ctx, train)
     else:
-        xs_p = xs
-    if train:
-        y, state = ssd_chunked(xs_p, dt, A, Bv, Cv, s.chunk)
-    else:
-        y, state = ssd(xs_p, dt, A, Bv, Cv, chunk=s.chunk)
-    y = y[:, :L] + xs.float() * p["D"][None, None, :, None]
+        y, state = _scan(xs, dt, A, Bv, Cv, s.chunk, train)
+    y = y + xs.float() * p["D"][None, None, :, None]
     y = y.reshape(B, L, di)
     y = rms_norm(y.to(x.dtype) * F.silu(z.float()).to(x.dtype), p["gn"],
                  cfg.norm_eps)

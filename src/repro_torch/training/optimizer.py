@@ -77,7 +77,8 @@ def _like(tree: Tensors, values):
 
 
 def init_opt_state(params: Tensors) -> dict:
-    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = [torch.zeros_like(p, dtype=torch.float32,
+                              memory_format=torch.contiguous_format)
              for _, p in _items(params)]
     return {"m": _like(params, zeros),
             "v": _like(params, [z.clone() for z in zeros]), "step": 0}

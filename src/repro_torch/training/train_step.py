@@ -2,7 +2,9 @@
 
 Counterpart of ``repro/training/train_step.py``: ``cast_half`` (:20-30),
 ``make_loss_fn`` (:33-47), ``make_train_step`` (:50-65) and
-``make_grad_accum_step`` (:68-96), without the sharding context.  The
+``make_grad_accum_step`` (:68-96), with the sharding context as their
+third argument, as the reference's (under a mesh the parameters are
+DTensors and the backward pass runs in ``sharded_scope``).  The
 parameters are the port's ``Model``, its float32 leaves the masters.  The
 loss casts them to bf16 (the cast is differentiable) and runs the model's
 plain training forward (``model_forward(..., train=True)``) on the casts
@@ -28,6 +30,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.context import NULL_CTX, ShardCtx, sharded_scope
 from repro_torch.models.model import Model, lm_head_weight, model_forward
 from repro_torch.training.loss import chunked_cross_entropy
 from repro_torch.training.optimizer import AdamWConfig, adamw_step_
@@ -66,17 +69,19 @@ def trainable(model: Model) -> Dict[str, torch.nn.Parameter]:
     return params
 
 
-def make_loss_fn(cfg: ModelConfig, ce_chunk: int = 512, remat: bool = True):
+def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
+                 ce_chunk: int = 512, remat: bool = True):
     def loss_fn(model: Model, tokens, labels, mask, prefix_embeds=None):
         p_half = cast_half(dict(model.named_parameters()))
-        hidden, aux = model_forward(model, tokens, prefix_embeds, train=True,
-                                    remat=remat, params=p_half)
+        hidden, aux = model_forward(model, tokens, prefix_embeds, ctx,
+                                    train=True, remat=remat, params=p_half)
         w = lm_head_weight(model, p_half)
-        nll, ntok = chunked_cross_entropy(hidden, w, labels, mask,
-                                          chunk=ce_chunk)
-        total = nll
-        if cfg.moe is not None:
-            total = total + cfg.moe.router_aux_weight * aux
+        with sharded_scope(ctx):
+            nll, ntok = chunked_cross_entropy(hidden, w, labels, mask,
+                                              chunk=ce_chunk, ctx=ctx)
+            total = nll
+            if cfg.moe is not None:
+                total = total + cfg.moe.router_aux_weight * aux
         return total, {"nll": nll, "aux_loss": aux, "n_tokens": ntok}
     return loss_fn
 
@@ -91,22 +96,24 @@ def _start(model: Model) -> Dict[str, torch.nn.Parameter]:
 def _update(opt_cfg: AdamWConfig, params, opt_state: dict) -> dict:
     """AdamW in place on the gradients in ``.grad`` (zeros for a parameter
     the loss did not reach, as JAX's gradient would be)."""
-    grads = {n: torch.zeros(p.shape, device=p.device) if p.grad is None
+    grads = {n: torch.zeros_like(p, dtype=torch.float32) if p.grad is None
              else p.grad for n, p in params.items()}
     return adamw_step_(opt_cfg, params, grads, opt_state, decay_flags(params))
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    ce_chunk: int = 512, remat: bool = True):
-    loss_fn = make_loss_fn(cfg, ce_chunk, remat)
+                    ctx: ShardCtx = NULL_CTX, ce_chunk: int = 512,
+                    remat: bool = True):
+    loss_fn = make_loss_fn(cfg, ctx, ce_chunk, remat)
 
     def train_step(model: Model, opt_state: dict, tokens, labels, mask,
                    prefix_embeds=None):
         params = _start(model)
         total, metrics = loss_fn(model, tokens, labels, mask, prefix_embeds)
-        total.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(_update(opt_cfg, params, opt_state))
+        with sharded_scope(ctx):
+            total.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics.update(_update(opt_cfg, params, opt_state))
         metrics["loss"] = total.detach()
         return model, opt_state, metrics
 
@@ -114,26 +121,27 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 
 def make_grad_accum_step(cfg: ModelConfig, opt_cfg: AdamWConfig, accum: int,
-                         ce_chunk: int = 512):
+                         ctx: ShardCtx = NULL_CTX, ce_chunk: int = 512):
     """Micro-batched variant: batch leading dim is [accum, micro, ...].  The
     micro-batches' gradients sum in ``.grad`` in float32 and are divided by
     ``accum``; the loss reported is the mean micro loss."""
-    loss_fn = make_loss_fn(cfg, ce_chunk)
+    loss_fn = make_loss_fn(cfg, ctx, ce_chunk)
 
     def step(model: Model, opt_state: dict, tokens, labels, mask,
              prefix_embeds=None):
         params = _start(model)
         loss_sum = torch.zeros((), device=model.device)
-        for i in range(accum):
-            pre = None if prefix_embeds is None else prefix_embeds[i]
-            total, _ = loss_fn(model, tokens[i], labels[i], mask[i], pre)
-            total.backward()
-            loss_sum = loss_sum + total.detach()
-        for p in params.values():
-            if p.grad is not None:
-                p.grad.div_(accum)
-        metrics = {"loss": loss_sum / accum}
-        metrics.update(_update(opt_cfg, params, opt_state))
+        with sharded_scope(ctx):
+            for i in range(accum):
+                pre = None if prefix_embeds is None else prefix_embeds[i]
+                total, _ = loss_fn(model, tokens[i], labels[i], mask[i], pre)
+                total.backward()
+                loss_sum = loss_sum + total.detach()
+            for p in params.values():
+                if p.grad is not None:
+                    p.grad.div_(accum)
+            metrics = {"loss": loss_sum / accum}
+            metrics.update(_update(opt_cfg, params, opt_state))
         return model, opt_state, metrics
 
     return step

@@ -48,6 +48,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                                             TransformerProxyPredictor)
     from repro_torch.launch import goodput
     from repro_torch.launch.serve import main
+    from repro_torch.launch import sharded
     from repro_torch.launch.train import main as train_main
     from repro_torch.models.model import init_params
     cfg = reduce_config(get_config("llama3.1-8b"))
@@ -62,7 +63,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: TransformerProxyPredictor().fit(corpus, epochs=1),
                  lambda: measure_engine_profile(cfg, GPUS["H100"]),
                  lambda: goodput.main([]),
-                 lambda: train_main(["--reduced", "--steps", "1"])):
+                 lambda: train_main(["--reduced", "--steps", "1"]),
+                 lambda: sharded.start_world(), lambda: sharded.mesh_ctx()):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
 
