@@ -11,13 +11,14 @@ JAX.  Phases, each printing one JSON line:
    paged decode, flash attention, SSD scan), ptxas's registers and spills,
    and the count of tensor-core instructions (``HGMMA``, ``HMMA``) that
    ``cuobjdump -sass`` finds in the flash and SSD libraries, where the
-   toolkit has ``cuobjdump``; then three ``ptxas`` lines: ptxas's report
+   toolkit has ``cuobjdump``; then ``ptxas`` lines: ptxas's report
    for ``flash_wgmma_kernel<256>`` (gemma3-12b's prefill) and for
-   ``flash_tf32x3_kernel<64>`` and ``<128>`` (the fp32 route), each of
-   which must show no spill and no C7512/C7518 note (``wgmma``
-   serialised), and the highest register its SASS names (the wgmma
-   kernel's consumers hold more than the launch count that ptxas reports,
-   after ``setmaxnreg``);
+   ``flash_tf32x3_kernel<64>`` and ``<128>`` (the fp32 route), and for
+   the paged kernel's bf16 pass 1 at hd 128 and 256, softcap branch
+   included (``paged_split_mma_kernel<HD>``), each of which must show
+   no spill and no C7512/C7518 note (``wgmma`` serialised), and the
+   highest register its SASS names (the wgmma kernel's consumers hold
+   more than the launch count that ptxas reports, after ``setmaxnreg``);
 2. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes, with its time (device time: the timed calls are
    replayed from a CUDA graph), the plain version's, one PyTorch
@@ -92,14 +93,26 @@ JAX.  Phases, each printing one JSON line:
    gemma3-27b window layer's shapes), and the SSD scan
    at jamba-v0.1-52b's prefill (B=1, L=2048, H=128 heads of P=64, one
    group of N=16, chunk 256; ``SSD_BRANCHES`` holds an untimed P=64, N=16
-   shape too);
+   shape too).  Then the paged kernel with an attention softcap
+   (``softcap`` lines): timed at the B=8 row's shape in bf16 and fp32 and
+   at gemma3-12b's hd 256 over pages (ctx 1025, the 4096-slot table) and
+   over its rings of 1024 and 512 rows, c = 50 (Gemma 2's
+   ``attn_logit_softcapping``), each beside the same call without the cap
+   (``ms_uncapped``; no PyTorch call computes a capped attention, so
+   ``library_ms`` is null); and ``PAGED_SOFTCAP_BRANCHES``: c = 50 and 5
+   (a cap that bites), bf16 and fp32, G 1 and 8, hd 128 and 256, over
+   pages and over a ring, each with a row at ctx 0 and one whose ctx ends
+   inside the second split, on pools that are NaN wherever the kernel
+   must not read, each timed capped and uncapped;
 3. reduced: reduced llama3.1-8b, mamba2-1.3b, a hybrid (a mamba layer,
    then full attention), minicpm-2b, qwen3-32b (qk_norm), internvl2-1b,
    musicgen-medium, deepseek-v2-lite-16b (MLA and MoE: no kernel, the
    latent cache), jamba-v0.1-52b (two periods: mamba, attention and
    MoE in one decode graph), gemma3-27b and gemma3-12b (window layers
    over per-slot rings beside a full layer over pages, window 16) and
-   mixtral-8x22b (window layers and MoE, no paged cache) in fp32, each
+   mixtral-8x22b (window layers and MoE, no paged cache), reduced
+   llama3.1-8b with an attention softcap of 50 and reduced gemma3-27b
+   with its window layers at 16 and 8 (two ring stacks) in fp32, each
    served on the kernel path and on the CPU plain path with the same
    weights, in three cases: batched,
    chunked, and staggered (rows finishing at different steps, pages
@@ -136,7 +149,13 @@ JAX.  Phases, each printing one JSON line:
    engine's capture seconds beside TPOT, decode tokens/s and peak memory
    (the ``serve`` line puts the card's ``nvidia-smi`` line beside it, and
    the time to read every weight once at 3.35 TB/s: decode's capacity
-   dispatch runs every expert each step);
+   dispatch runs every expert each step).  Last, ``serve_variant`` lines:
+   gemma3-12b whole on one weight set, as published and with an
+   attention softcap of 50 and its window layers at 1024 and 512, each
+   on one engine at a time (one-shot, then 512-token chunks), 6 requests
+   of 128-2048 prompt and 32 new tokens: TTFT, TPOT, peak memory, ring
+   bytes and exact flash and paged launches (B1 capped over pages and
+   rings of two sizes, B2 capped at hd 256 on ``wgmma``);
 5. goodput: GoodServe's decision path through ``repro_torch.launch.goodput``.
    (a) ``measure_engine_profile`` on full-width llama3.1-8b in bf16
    (random weights from seed 0, one-shot prefill, ``max_len`` 4096, page
@@ -169,7 +188,10 @@ JAX.  Phases, each printing one JSON line:
    gateway replicas over views synced every second, and the bandit router
    warm-started from a recorded trace, its doubly-robust estimate beside
    its what-if replay.  Every request of each run must be finished, shed,
-   throttled, cascaded or lost;
+   throttled, cascaded or lost, and the bandit's estimates must keep the
+   bounds the estimator guarantees (``dr_bounds_hold``: the direct value,
+   the what-if value and the match rate in [0, 1], the estimate finite
+   and within 20 x the match rate of the direct value);
 6. train: training through ``repro_torch.training``, which runs no kernel
    (the reference trains through plain attention and the plain scan; the
    kernel wrappers refuse inputs that require grad).  (a) ``train_parity``:
@@ -235,7 +257,8 @@ Then the ``kernels`` line (``smoke_s``: the run's seconds so far, the
 build included; ``launches``: the count from the phase-4 run of
 llama3.1-8b or mamba2-1.3b, whichever runs each kernel, in bf16;
 ``flash_attention_fp32``, the split-TF32 route, with the fp32
-llama3.1-8b serve's count; ``cuda_kernel``: the flash route of the
+llama3.1-8b serve's count; ``at_softcap_rows``: the paged kernel's capped
+rows; ``cuda_kernel``: the flash route of the
 line's row; ``launches_by_path``:
 each path's count, every phase-4 model's, the phase-5 profile's,
 phase 6's evaluation and phase 7's sharded runs;
@@ -266,6 +289,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 494.7e12, "float32": 67e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 COLD_POOLS = 6     # B=1 paged pools timed in turn: 6 x 16.8 MB in bf16 > L2
+SOFTCAP = 50.0     # Gemma 2's attn_logit_softcapping (hf:google/gemma-2-9b)
+NO_LIBRARY_CAP = "none: SDPA has no softcap"
 
 
 def emit(obj) -> None:
@@ -359,10 +384,12 @@ def sass_top_register(name: str, mangled: str):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def paged_case(B: int, dtype_name: str, seed: int):
+def paged_case(B: int, dtype_name: str, seed: int, softcap=None):
     """llama3.1-8b's decode attention (H=32 over KV=8, hd=128, page 16)
     over tables of 4096 token slots, timed.  At B=1 the timed calls cycle
-    over ``COLD_POOLS`` page pools and tables, as do the library calls."""
+    over ``COLD_POOLS`` page pools and tables, as do the library calls.
+    With ``softcap`` the scores are capped, there is no library call, and
+    ``ms_uncapped`` times the same calls without the cap."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import (paged_attention,
@@ -396,8 +423,8 @@ def paged_case(B: int, dtype_name: str, seed: int):
         dense.append((q[:, :, None], kd.repeat_interleave(H // KV, dim=1),
                       vd.repeat_interleave(H // KV, dim=1)))
     args = pools[0]
-    out = paged_attention(*args)
-    ref = paged_attention_ref(*args)
+    out = paged_attention(*args, softcap=softcap)
+    ref = paged_attention_ref(*args, softcap=softcap)
     torch.cuda.synchronize()
     err = max_err(out, ref)
     if B > 1 and out[0].abs().max().item() != 0.0:
@@ -414,14 +441,22 @@ def paged_case(B: int, dtype_name: str, seed: int):
         "B": B, "dtype": dtype_name, "ctx_sum": tot,
         "ctx_max": int(ctx.max()), "splits": splits,
         "split_tokens": split_tokens, "blocks": KV * B * splits,
-        "pools": len(pools), "max_abs_err": err,
-        "ms": time_ms(lambda: paged_attention(*pools[next(turn)])),
-        "plain_ms": time_ms(lambda: paged_attention_ref(*args), iters=5),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            *dense[next(lib_turn)], attn_mask=mask)),
+        "pools": len(pools), "softcap": softcap, "max_abs_err": err,
+        "ms": time_ms(lambda: paged_attention(*pools[next(turn)],
+                                              softcap=softcap)),
+        "plain_ms": time_ms(lambda: paged_attention_ref(*args,
+                                                        softcap=softcap),
+                            iters=5),
+        "library_ms": None if softcap else time_ms(
+            lambda: F.scaled_dot_product_attention(*dense[next(lib_turn)],
+                                                   attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
-    if len(pools) > 1:
+    if softcap:
+        row["library"] = NO_LIBRARY_CAP
+        row["ms_uncapped"] = time_ms(lambda: paged_attention(
+            *pools[next(turn)]))
+    elif len(pools) > 1:
         row["ms_warm_l2"] = time_ms(lambda: paged_attention(*args))
         row["library_warm_l2_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(*dense[0], attn_mask=mask))
@@ -430,7 +465,7 @@ def paged_case(B: int, dtype_name: str, seed: int):
 
 def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
                      H: int = 32, KV: int = 8, hd: int = 128,
-                     ring: bool = False):
+                     ring: bool = False, softcap=None):
     """bf16 paged decode with every row at context ``ctx`` (llama3.1-8b's
     attention shape unless H, KV, hd say another model's), over block
     tables of ``width`` token slots (the engine's fixed width at
@@ -441,7 +476,9 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
     bound.  A last page holds ctx % page live slots; the rest are NaN.
     With ``ring``, the table is a window layer's: row b names pages b * n
     .. b * n + n - 1 in order (``WindowCache``'s identity table), and ctx
-    is min(context, ring size)."""
+    is min(context, ring size).  With ``softcap`` the scores are capped,
+    there is no library call, and ``ms_uncapped`` times the full-width
+    call without the cap."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import (paged_attention,
@@ -461,15 +498,15 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
     full[:, :used] = order.view(B, used).to(torch.int32)
     cut = full[:, :used].contiguous()
     lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
-    ref = paged_attention_ref(q, kp, vp, cut, lens)
+    ref = paged_attention_ref(q, kp, vp, cut, lens, softcap)
     if ctx % page:                 # slots past ctx on each row's last page
         k_nan, v_nan = kp.clone(), vp.clone()
         k_nan[cut[:, -1].long(), ctx % page:] = float("nan")
         v_nan[cut[:, -1].long(), ctx % page:] = float("nan")
     else:
         k_nan, v_nan = kp, vp
-    out_full = paged_attention(q, k_nan, v_nan, full, lens)
-    out_cut = paged_attention(q, k_nan, v_nan, cut, lens)
+    out_full = paged_attention(q, k_nan, v_nan, full, lens, softcap)
+    out_cut = paged_attention(q, k_nan, v_nan, cut, lens, softcap)
     torch.cuda.synchronize()
     nbytes = 2 * (2 * B * ctx * KV * hd + 2 * B * H * hd) + 4 * (B * used + B)
     b_ms, b_by = bound(nbytes, 4.0 * H * hd * B * ctx, "bfloat16")
@@ -480,21 +517,29 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
              vd.repeat_interleave(H // KV, dim=1))
     mask = None if S == ctx else (torch.arange(S, device="cuda") < ctx)[None]
     sm = sm_count(q.device)
-    return {
+    row = {
         "B": B, "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16", "ctx": ctx,
-        "ring": ring, "ctx_sum": B * ctx,
+        "ring": ring, "softcap": softcap, "ctx_sum": B * ctx,
         "table_tokens": {"full": width, "cut": S},
         "splits": {"full": partition(B, KV, n_pages, page, sm),
                    "cut": partition(B, KV, used, page, sm)},
         "max_abs_err": max(max_err(out_full, ref), max_err(out_cut, ref)),
-        "ms": time_ms(lambda: paged_attention(q, kp, vp, full, lens)),
-        "ms_cut": time_ms(lambda: paged_attention(q, kp, vp, cut, lens)),
+        "ms": time_ms(lambda: paged_attention(q, kp, vp, full, lens,
+                                              softcap)),
+        "ms_cut": time_ms(lambda: paged_attention(q, kp, vp, cut, lens,
+                                                  softcap)),
         "plain_ms": time_ms(lambda: paged_attention_ref(q, kp, vp, full,
-                                                        lens), iters=5),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            *dense, attn_mask=mask)),
+                                                        lens, softcap),
+                            iters=5),
+        "library_ms": None if softcap else time_ms(
+            lambda: F.scaled_dot_product_attention(*dense, attn_mask=mask)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    if softcap:
+        row["library"] = NO_LIBRARY_CAP
+        row["ms_uncapped"] = time_ms(lambda: paged_attention(q, kp, vp, full,
+                                                             lens))
+    return row
 
 
 # Small untimed shapes that reach every branch of the paged kernel:
@@ -556,11 +601,48 @@ MODEL_ROWS = [
 ]
 
 
+def _branch_pools(B, H, KV, hd, page, n_pages, dtype_name, ctx, seed,
+                  ring=False):
+    """(q, k/v pools holding NaN wherever the kernel must not read, the
+    same pools without the NaN, block tables, context lengths) on the
+    card.  Page 0 is the pad page that short rows' table entries name, as
+    the engine pads; it and every other page that no row's first
+    ceil(ctx/page) entries name are NaN, and so is every slot of a row's
+    last page past its ctx.  With ``ring`` there is no pad page and row b
+    names pages b * n_pages .. in order (``WindowCache``'s identity
+    table)."""
+    import torch
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator().manual_seed(seed)
+    P = B * n_pages + (0 if ring else 1)
+    q = torch.randn((B, H, hd), generator=g).to(dt)
+    kp = torch.randn((P, page, KV, hd), generator=g).to(dt)
+    vp = torch.randn((P, page, KV, hd), generator=g).to(dt)
+    if ring:
+        bt = torch.arange(P, dtype=torch.int32).view(B, n_pages)
+    else:
+        free = (torch.randperm(P - 1, generator=g) + 1).tolist()
+        bt = torch.zeros((B, n_pages), dtype=torch.int32)
+    named = torch.zeros(P, dtype=torch.bool)
+    k_nan, v_nan = kp.clone(), vp.clone()
+    for b, c in enumerate(ctx):
+        used = -(-c // page)
+        if not ring:
+            bt[b, :used] = torch.tensor(free[b * n_pages:b * n_pages + used],
+                                        dtype=torch.int32)
+        named[bt[b, :used].long()] = True
+        if c % page:
+            k_nan[bt[b, used - 1], c % page:] = float("nan")
+            v_nan[bt[b, used - 1], c % page:] = float("nan")
+    k_nan[~named] = float("nan")
+    v_nan[~named] = float("nan")
+    ctx_t = torch.tensor(ctx, dtype=torch.int32)
+    return [t.to("cuda") for t in (q, k_nan, v_nan, kp, vp, bt, ctx_t)]
+
+
 def paged_branch_case(B, H, KV, hd, page, n_pages, dtype_name, ctxs, seed):
-    """One ``PAGED_BRANCHES`` shape against the plain version.  Page 0 is
-    the pad page that short rows' table entries name, as the engine pads;
-    it and every other page that no row's first ceil(ctx/page) entries
-    name are NaN, and so is every slot of a row's last page past its ctx.
+    """One ``PAGED_BRANCHES`` shape against the plain version, on pools
+    that hold NaN wherever the kernel must not read (``_branch_pools``).
     The plain version, which multiplies masked rows by 0, reads the same
     pools without the NaN."""
     import torch
@@ -573,29 +655,8 @@ def paged_branch_case(B, H, KV, hd, page, n_pages, dtype_name, ctxs, seed):
     if any(c in near for c in ctxs) and splits < 2:
         raise AssertionError(f"paged branch {ctxs} has one split")
     ctx = [near.get(c, c) for c in ctxs]
-    dt = getattr(torch, dtype_name)
-    g = torch.Generator().manual_seed(seed)
-    P = B * n_pages + 1
-    q = torch.randn((B, H, hd), generator=g).to(dt)
-    kp = torch.randn((P, page, KV, hd), generator=g).to(dt)
-    vp = torch.randn((P, page, KV, hd), generator=g).to(dt)
-    free = (torch.randperm(P - 1, generator=g) + 1).tolist()
-    bt = torch.zeros((B, n_pages), dtype=torch.int32)
-    named = torch.zeros(P, dtype=torch.bool)
-    k_nan, v_nan = kp.clone(), vp.clone()
-    for b, c in enumerate(ctx):
-        used = -(-c // page)
-        bt[b, :used] = torch.tensor(free[b * n_pages:b * n_pages + used],
-                                    dtype=torch.int32)
-        named[bt[b, :used].long()] = True
-        if c % page:
-            k_nan[bt[b, used - 1], c % page:] = float("nan")
-            v_nan[bt[b, used - 1], c % page:] = float("nan")
-    k_nan[~named] = float("nan")
-    v_nan[~named] = float("nan")
-    ctx_t = torch.tensor(ctx, dtype=torch.int32)
-    cuda = [t.to("cuda") for t in (q, k_nan, v_nan, kp, vp, bt, ctx_t)]
-    q, k_nan, v_nan, kp, vp, bt, ctx_t = cuda
+    q, k_nan, v_nan, kp, vp, bt, ctx_t = _branch_pools(
+        B, H, KV, hd, page, n_pages, dtype_name, ctx, seed)
     out = paged_attention(q, k_nan, v_nan, bt, ctx_t)
     ref = paged_attention_ref(q, kp, vp, bt, ctx_t)
     torch.cuda.synchronize()
@@ -606,6 +667,65 @@ def paged_branch_case(B, H, KV, hd, page, n_pages, dtype_name, ctxs, seed):
             "blocks": KV * B * splits, "max_abs_err": max_err(out, ref),
             "ctx0_rows_zero": all(out[b].abs().max().item() == 0.0
                                   for b in empty)}
+
+
+# The capped paged kernel at the served shapes, timed (``softcap`` lines):
+# the B=8 row's shape (``paged_case``) in bf16 and fp32, and gemma3-12b's
+# decode (H=16 over KV=8, hd 256) over pages and over its rings of 1024
+# and 512 rows (``paged_width_case``), c = SOFTCAP.
+SOFTCAP_ROWS = [
+    ("paged_case", "llama3.1-8b", dict(B=8, dtype_name="bfloat16", seed=8)),
+    ("paged_case", "llama3.1-8b", dict(B=8, dtype_name="float32", seed=8)),
+    ("paged_width_case", "gemma3-12b", dict(B=8, H=16, KV=8, hd=256,
+                                            ctx=1025, seed=600)),
+    ("paged_width_case", "gemma3-12b window 1024", dict(
+        B=8, H=16, KV=8, hd=256, ctx=1024, width=1024, ring=True, seed=601)),
+    ("paged_width_case", "gemma3-12b window 512", dict(
+        B=8, H=16, KV=8, hd=256, ctx=512, width=512, ring=True, seed=602)),
+]
+
+# Small shapes of the capped paged kernel (``kernel_branch`` lines with a
+# ``softcap``): (cap, dtype, G, hd, ring), every combination; c = 5 bites
+PAGED_SOFTCAP_BRANCHES = list(itertools.product(
+    (SOFTCAP, 5.0), ("bfloat16", "float32"), (1, 8), (128, 256),
+    (False, True)))
+
+
+def paged_softcap_case(cap, dtype_name, G, hd, ring, seed):
+    """One ``PAGED_SOFTCAP_BRANCHES`` shape: B=3 rows over 64 pages of 16
+    (KV=2; 4 splits of 256 on an H100), at ctx 0, 37 tokens into the
+    second split, and 1000 over shuffled pages or 1024 over a ring, on
+    pools that hold NaN wherever the kernel must not read
+    (``_branch_pools``); the plain version reads the same pools without
+    the NaN.  Timed capped (``ms``) and uncapped (``ms_uncapped``) on the
+    clean pools."""
+    import torch
+    from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                         partition, sm_count)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    B, KV, page, n_pages = 3, 2, 16, 64
+    H = G * KV
+    splits, split_tokens = partition(B, KV, n_pages, page,
+                                     sm_count(torch.device("cuda", 0)))
+    ctx = [0, split_tokens + 37, n_pages * page if ring else 1000]
+    if splits < 2 or ctx[1] >= min(2 * split_tokens, ctx[2]):
+        raise AssertionError(f"softcap branch: ctx {ctx[1]} is not inside "
+                             f"the second of {splits} splits")
+    q, k_nan, v_nan, kp, vp, bt, ctx_t = _branch_pools(
+        B, H, KV, hd, page, n_pages, dtype_name, ctx, seed, ring)
+    out = paged_attention(q, k_nan, v_nan, bt, ctx_t, cap)
+    ref = paged_attention_ref(q, kp, vp, bt, ctx_t, cap)
+    plain = paged_attention_ref(q, kp, vp, bt, ctx_t)
+    torch.cuda.synchronize()
+    return {"softcap": cap, "dtype": dtype_name, "B": B, "H": H, "KV": KV,
+            "hd": hd, "page": page, "n_pages": n_pages, "ring": ring,
+            "ctx": ctx, "splits": splits, "split_tokens": split_tokens,
+            "max_abs_err": max_err(out, ref),
+            "cap_moves_output_by": max_err(ref, plain),
+            "ctx0_rows_zero": out[0].abs().max().item() == 0.0,
+            "ms": time_ms(lambda: paged_attention(q, kp, vp, bt, ctx_t, cap)),
+            "ms_uncapped": time_ms(lambda: paged_attention(q, kp, vp, bt,
+                                                           ctx_t))}
 
 
 def _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed, buf_len=None,
@@ -1040,7 +1160,31 @@ def check_kernels():
             if not (r["rel_err"] <= TOL["float32"] and r["poisoned"]):
                 raise AssertionError(f"ssd disagrees with its plain version: "
                                      f"{r}")
+    check_softcap(cases)
     return cases
+
+
+def check_softcap(cases: dict):
+    """The capped paged kernel: ``SOFTCAP_ROWS`` timed (into
+    ``cases["softcap_rows"]``), then ``PAGED_SOFTCAP_BRANCHES``, each
+    within the dtype's tolerance of the capped plain version, ctx 0 rows
+    zeros."""
+    for fn, model, kw in SOFTCAP_ROWS:
+        r = (paged_case(softcap=SOFTCAP, **kw) if fn == "paged_case"
+             else paged_width_case(softcap=SOFTCAP, **kw))
+        r = {"name": "paged_attention", "model": model, **r}
+        emit({"phase": "softcap", **r})
+        cases.setdefault("softcap_rows", []).append(r)
+        if not r["max_abs_err"] <= TOL[r["dtype"]]:       # NaN fails too
+            raise AssertionError(f"capped paged_attention at {model}'s shape "
+                                 f"disagrees with its plain version: {r}")
+    for i, shape in enumerate(PAGED_SOFTCAP_BRANCHES):
+        r = paged_softcap_case(*shape, seed=700 + i)
+        emit({"phase": "kernel_branch", "name": "paged_attention", **r})
+        if not (r["max_abs_err"] <= TOL[r["dtype"]]   # NaN fails too
+                and r["ctx0_rows_zero"]):
+            raise AssertionError(f"capped paged_attention disagrees with its "
+                                 f"plain version: {r}")
 
 
 # ---------------------------------------------------------------------------
@@ -1050,7 +1194,9 @@ def check_kernels():
 REDUCED_ARCHS = ("llama3.1-8b", "mamba2-1.3b", "hybrid", "minicpm-2b",
                  "qwen3-32b", "internvl2-1b", "musicgen-medium",
                  "deepseek-v2-lite-16b", "jamba-v0.1-52b", "gemma3-27b",
-                 "gemma3-12b", "mixtral-8x22b")
+                 "gemma3-12b", "mixtral-8x22b", "llama3.1-8b softcap",
+                 "gemma3-27b windows")
+REDUCED_WINDOWS = (16, 8)    # "gemma3-27b windows": its window layers' sizes
 
 
 def wrappers():
@@ -1081,9 +1227,22 @@ def reduced_config(arch: str):
     periods and two window layers; gemma3-12b: 12; mixtral-8x22b: 2 window
     layers with MoE; window 16, so rings wrap); ``hybrid`` is reduced
     mamba2-1.3b cut to a mamba layer and a full-attention layer with a dense
-    FFN, so one decode graph holds both caches."""
+    FFN, so one decode graph holds both caches; ``llama3.1-8b softcap`` is
+    reduced llama3.1-8b with an attention softcap of ``SOFTCAP``, and
+    ``gemma3-27b windows`` reduced gemma3-27b with its window layers at
+    ``REDUCED_WINDOWS`` in turn (two ring stacks)."""
     import dataclasses
     from repro_torch.configs import base, get_config, reduce_config
+    from repro_torch.launch.serve import alternate_windows
+    if arch == "llama3.1-8b softcap":
+        cfg = reduce_config(get_config("llama3.1-8b"), layers_per_stage=2)
+        return dataclasses.replace(cfg, name=cfg.name + "-softcap",
+                                   logit_softcap=SOFTCAP)
+    if arch == "gemma3-27b windows":
+        cfg = alternate_windows(reduce_config(get_config("gemma3-27b"),
+                                              layers_per_stage=2),
+                                REDUCED_WINDOWS)
+        return dataclasses.replace(cfg, name=cfg.name + "-windows")
     if arch != "hybrid":
         return reduce_config(get_config(arch), layers_per_stage=2)
     cfg = reduce_config(get_config("mamba2-1.3b"))
@@ -1312,6 +1471,105 @@ def serve_full_width(arch: str, card: str, max_batch=None, periods=None,
     return launches
 
 
+VARIANT_WINDOWS = (1024, 512)  # the variant's window layers, in turn
+
+
+def with_config(model, cfg):
+    """A model over ``model``'s own parameters that runs ``cfg``, whose
+    layers hold the same parameters (another softcap or other window
+    sizes)."""
+    from repro_torch.models.model import Block, Model
+    return Model(cfg, model.top, [
+        Block(spec, blk.attn, blk.ffn, blk.mixer)
+        for spec, blk in zip(cfg.layer_list(), model.layers)])
+
+
+def serve_variant(card: str) -> dict:
+    """gemma3-12b whole on one weight set (seed 0), as published and with
+    an attention softcap of ``SOFTCAP`` and its window layers at
+    ``VARIANT_WINDOWS`` in turn, on one engine at a time: one-shot, then
+    in 512-token chunks, each admission in the turns published, variant,
+    variant, published (host time moves a step by ~10% between runs),
+    every engine serving the same 6 requests of 128-2048 prompt and 32
+    new tokens.  Every request must finish, every decode step be a replay
+    of the engine's graph, and the flash and paged kernels launch exactly
+    once per attention layer per prefill call and decode step.  Returns
+    {path: launches of its four engines}."""
+    import dataclasses
+    import torch
+    from repro_torch.engine.engine import InferenceEngine
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    base = served_config("gemma3-12b")
+    variant = dataclasses.replace(
+        serve.alternate_windows(base, VARIANT_WINDOWS),
+        name=f"{base.name}-softcap-windows", logit_softcap=SOFTCAP)
+    size = serve.SIZES["full"]
+    max_new, n_req = 32, 6
+    _free_card()
+    params = init_params(base, seed=0, dtype=size["dtype"], device="cuda")
+    models = {base.name: params, variant.name: with_config(params, variant)}
+    by_path = {f"{name} one-engine serve": {} for name in models}
+    for chunk in (None, size["prefill_chunk"]):
+        for turn, cfg in enumerate((base, variant, variant, base)):
+            model = models[cfg.name]
+            n = layer_counts(cfg)
+            _free_card()
+            eng = InferenceEngine(cfg, model, max_batch=size["max_batch"],
+                                  max_len=size["max_len"],
+                                  page_size=size["page_size"],
+                                  prefill_chunk=chunk, device="cuda")
+            requests = serve.make_requests(cfg, n_req, max_new, "full",
+                                           seed=0)
+            _zero_counts()
+            report = serve.serve([eng], requests)
+            launches = _path_counts()
+            events = report["events"][0]
+            prefills = [dt for kind, _, dt in events if kind == "prefill"]
+            decodes = [(k, dt) for kind, k, dt in events if kind == "decode"]
+            calls = sum(1 if chunk is None else math.ceil(r.prompt_len / chunk)
+                        for r in eng.completed)
+            want = {"flash_attention": (n["kv"] + n["win"]) * calls,
+                    "paged_attention": (n["kv"] + n["win"]) * len(decodes),
+                    "ssd": 0}
+            res = {"phase": "serve_variant", "config": cfg.name,
+                   "turn": turn, "softcap": cfg.logit_softcap,
+                   "windows": sorted({b.window for b in cfg.layer_list()
+                                      if b.mixer == "window"}),
+                   "layers_by_cache": n,
+                   "admission": "one-shot" if chunk is None
+                   else f"chunks of {chunk}",
+                   "requests": n_req, "finished": len(eng.completed),
+                   "prompt_tokens": sum(r.prompt_len for r in eng.completed),
+                   "prefill_calls": calls, "decode_steps": len(decodes),
+                   "graph_replays": eng.graph_replays,
+                   "capture_s": eng.capture_s, "launches": launches,
+                   "median_ttft_s": statistics.median(prefills),
+                   "median_tpot_s": statistics.median(dt for _, dt
+                                                      in decodes),
+                   "decode_tokens_per_s": (sum(k for k, _ in decodes)
+                                           / sum(dt for _, dt in decodes)),
+                   "ring_gb": eng.window.nbytes / 1e9,
+                   "ring_stacks": [st.size for st in eng.window.stacks],
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "nvidia_smi": card}
+            emit(res)
+            if not (len(eng.completed) == n_req
+                    and all(len(r.generated) == max_new
+                            for r in eng.completed)
+                    and launches == want
+                    and eng.graph_replays == len(decodes) > 0):
+                raise AssertionError(f"gemma3-12b serve failed: {res}, "
+                                     f"launches wanted {want}")
+            total = by_path[f"{cfg.name} one-engine serve"]
+            for k, c in launches.items():
+                total[k] = total.get(k, 0) + c
+            del eng
+    del params, models, model
+    _free_card()
+    return by_path
+
+
 # ---------------------------------------------------------------------------
 # phase 5: GoodServe's decision path on a profile measured on this card
 # ---------------------------------------------------------------------------
@@ -1387,11 +1645,28 @@ def goodput_runs(pred, prof, n: int = 400):
         raise AssertionError("goodput: a run did not finish every request")
 
 
+def dr_bounds_hold(row: dict, max_weight: float) -> bool:
+    """What the bandit's doubly-robust estimate guarantees: rewards are 0
+    or 1, so the direct model's value, the what-if value and the match
+    rate lie in [0, 1]; each matched event adds ``w (reward - Q)`` with
+    ``w <= max_weight`` and ``|reward - Q| <= 1``, so the estimate is
+    finite and within ``max_weight * match_rate`` of the direct value
+    (it may leave [0, 1])."""
+    return (all(0.0 <= row[k] <= 1.0
+                for k in ("dr_direct", "whatif_value", "dr_match_rate"))
+            and math.isfinite(row["dr_value"])
+            and abs(row["dr_value"] - row["dr_direct"])
+            <= max_weight * row["dr_match_rate"])
+
+
 def goodput_policies(pred, prof, n: int = 400):
     """Phase 5 (d): the rest of the control plane on fig6's trace over the
     pool with the measured H100 (``goodput.policy_runs``).  Every request
     of each run must be accounted for: finished, shed, throttled,
-    cascaded or lost, none left open."""
+    cascaded or lost, none left open; the bandit's estimates must keep
+    ``dr_bounds_hold``."""
+    import inspect
+    from repro_torch.core.replay import dr_estimate
     from repro_torch.launch import goodput
     rows = goodput.policy_runs(pred, prof, n=n)
     for r in rows:
@@ -1401,11 +1676,13 @@ def goodput_policies(pred, prof, n: int = 400):
                    and r["accounting"]["open"] == 0
                    and math.isfinite(r["goodput_rps"]))]
     bandit = next(r for r in rows if r["policy"] == "bandit")
+    max_weight = inspect.signature(dr_estimate).parameters[
+        "max_weight"].default
     if (bad or [r["policy"] for r in rows] != goodput.POLICIES
-            or not all(0.0 <= bandit[k] <= 1.0
-                       for k in ("dr_value", "whatif_value"))):
-        raise AssertionError(f"goodput policies: unaccounted requests or "
-                             f"a failed run in {bad}")
+            or not dr_bounds_hold(bandit, max_weight)):
+        raise AssertionError(f"goodput policies: unaccounted requests, a "
+                             f"failed run in {bad}, or the bandit's "
+                             f"estimates out of bounds: {bandit}")
 
 
 # ---------------------------------------------------------------------------
@@ -2052,21 +2329,26 @@ def main() -> int:
                     for n, log in logs.items()},
           "flash_sass": tensor_core_count("flash_attention"),
           "ssd_sass": tensor_core_count("ssd")})
-    # gemma3-12b's prefill route (128 O accumulators a consumer thread)
-    # and the fp32 route at the served head dims
-    for kernel, hd in (("flash_wgmma_kernel", 256),
-                       ("flash_tf32x3_kernel", 64),
-                       ("flash_tf32x3_kernel", 128)):
-        mangled = f"{kernel}ILi{hd}E"
-        report = ptxas_report(logs["flash_attention"], mangled)
-        emit({"phase": "ptxas", "kernel": f"{kernel}<{hd}>",
-              "report": report, "sass_top_register": sass_top_register(
-                  "flash_attention", mangled)})
+    # gemma3-12b's prefill route (128 O accumulators a consumer thread),
+    # the fp32 route at the served head dims, and the paged kernel's bf16
+    # pass 1, whose softcap branch must not spill (hd 256: a 64 x 256 fp32
+    # output fragment a warp)
+    for lib, kernel, args in (
+            ("flash_attention", "flash_wgmma_kernel", (256,)),
+            ("flash_attention", "flash_tf32x3_kernel", (64,)),
+            ("flash_attention", "flash_tf32x3_kernel", (128,)),
+            ("paged_attention", "paged_split_mma_kernel", (128,)),
+            ("paged_attention", "paged_split_mma_kernel", (256,))):
+        mangled = kernel + "I" + "".join(f"Li{a}E" for a in args)
+        name = f"{kernel}<{', '.join(map(str, args))}>"
+        report = ptxas_report(logs[lib], mangled)
+        emit({"phase": "ptxas", "kernel": name, "report": report,
+              "sass_top_register": sass_top_register(lib, mangled)})
         spills = [int(n) for ln in report for n in
                   re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)]
         if not spills or any(spills) or any(
                 c in ln for ln in report for c in ("C7512", "C7518")):
-            raise AssertionError(f"{kernel}<{hd}> spills or serialises its "
+            raise AssertionError(f"{name} spills or serialises its "
                                  f"wgmma: {report}")
 
     cases = check_kernels()
@@ -2081,6 +2363,7 @@ def main() -> int:
         cut = "" if periods is None else f" ({periods} periods)"
         by_path[f"{arch}{cut}{' ' + dtype_name if dtype_name else ''} "
                 f"serve"] = ran
+    by_path.update(serve_variant(card))
     prof, by_path["goodput profile (llama3.1-8b)"] = goodput_profile()
     pred = goodput_predictor()
     goodput_runs(pred, prof)
@@ -2111,7 +2394,12 @@ def main() -> int:
                 "at": {k: row[k] for k in row if k in
                        ("B", "L", "Lq", "Lk", "dtype", "ctx_sum",
                         "ctx_max")},
-                "at_model_rows": at_models}
+                "at_model_rows": at_models,
+                "at_softcap_rows": {
+                    f"{r['model']} {r['dtype']}": {k: r.get(k) for k in (
+                        "ms", "ms_uncapped", "bound_ms", "bound_by",
+                        "plain_ms", "library_ms", "max_abs_err", "softcap")}
+                    for r in cases["softcap_rows"] if r["name"] == name}}
     paged = next(r for r in cases["paged_attention"]
                  if r["dtype"] == "bfloat16" and r["B"] == 8)
     flash = next(r for r in cases["flash_attention"]

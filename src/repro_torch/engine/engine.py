@@ -18,8 +18,9 @@ events deque.  Deliberate differences:
   every step (``graph_replays`` counts them); a capture or replay that
   fails raises.  On the CPU the same padded step runs eagerly.  The engine
   holds pages only for full attention layers, per-slot K/V rings
-  (``WindowCache``, the JAX engine's ring; the paged kernel reads them
-  through a constant identity table) only for window layers, per-slot
+  (``WindowCache``, the JAX engine's ring, one stack per ring size; the
+  paged kernel reads them through a constant identity table) only for
+  window layers, per-slot
   latent rows (``LatentCache``) only for MLA layers and per-slot states
   (``SSMStateCache``) only for mamba layers; decode updates every slot's
   ring rows, latent rows and state in place.  Without a paged cache the

@@ -10,6 +10,9 @@
 //   softmax in fp32.  A sequence with ctx = 0 gets zeros, as the Pallas
 //   kernel does.  The same call reads a window layer's per-slot ring: its
 //   table names the slot's own pages, its length is min(ctx, ring size).
+//   With softcap c > 0 each scaled score s becomes tanh(s / c) * c before
+//   the mask and the softmax, as the JAX model's _sdpa caps it
+//   (src/repro/models/layers.py:119-128; the Pallas kernel has no cap).
 //
 // Bound: device memory.  A launch reads sum(ctx) * KV * hd K and V elements
 //   once each and does 4 * G flops per element pair: at G = 4 in bf16 about
@@ -57,6 +60,18 @@
 //     the tile's bytes stay those of hd 128.  Every warp (bf16) or group
 //     (fp32) keeps its own online softmax; their states merge once, at the
 //     end of the block, through shared memory.
+//   * The softcap is an argument of both pass-1 kernels (cap_mul > 0),
+//     a branch every thread takes the same way: a call without a cap runs
+//     no tanhf, and one build serves both (a template flag doubled the
+//     library's kernels and its nvcc time).  The cap applies where a
+//     token is in range, before its score joins the running max, and a
+//     token past ctx stays -inf (tanh(-inf) * c is the finite -c, which
+//     would weigh masked tokens and empty splits).  Scores stay in log2
+//     units, so the merge pass is the same with or without a cap: the
+//     bf16 kernel maps s to tanhf(s * scale / c) * c * log2e; the fp32
+//     kernel scales q by scale / c in place of scale * log2e and maps
+//     its dot products x to tanhf(x) * c * log2e (B2's cap_in / mul
+//     split), each score once per group of lanes (cap_group).
 
 #include <stdint.h>
 
@@ -133,6 +148,13 @@ __device__ __forceinline__ void mma_rows8(float (&d)[4], uint32_t a0,
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A score x already multiplied by qk_mul, in log2 units: x itself without
+// a cap (qk_mul = scale * log2e, cap_mul = 0); tanh(x) * c * log2e with
+// cap c (qk_mul = scale / c, cap_mul = c * log2e).
+__device__ __forceinline__ float capped(float x, float cap_mul) {
+  return cap_mul > 0.f ? tanhf(x) * cap_mul : x;
 }
 
 // ---------------------------------------------------------------------------
@@ -291,7 +313,7 @@ paged_split_mma_kernel(const bf16* __restrict__ q,
                        const int* __restrict__ context_lens,
                        float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                        int H, int KV, int page, int n_pages,
-                       int split_tokens, float scale_log2) {
+                       int split_tokens, float qk_mul, float cap_mul) {
   constexpr int LD = HD + 8;   // padded row: ldmatrix without conflicts
   constexpr int NK = HD / 16;  // k-steps of S = Q K^T
   constexpr int NN = HD / 8;   // n-tiles of O = P V
@@ -354,7 +376,9 @@ paged_split_mma_kernel(const bf16* __restrict__ q,
         for (int n = 0; n < 2; ++n)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            s[n][e] = t0 + 8 * n + e < end ? s[n][e] * scale_log2 : -INFINITY;
+            s[n][e] = t0 + 8 * n + e < end
+                          ? capped(s[n][e] * qk_mul, cap_mul)
+                          : -INFINITY;
             mt = fmaxf(mt, s[n][e]);
           }
         mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
@@ -455,6 +479,30 @@ __device__ __forceinline__ float group_sum(float a) {
   return a;
 }
 
+// The U x G scores that every lane of a group holds, capped: each score's
+// tanhf once per group (lane c takes scores c, c + LANES, ...), then
+// shuffled back to every lane of the group.  tanhf costs more than the
+// score's 8 FMAs a lane, so LANES lanes each capping every score would
+// double the pass at G = 8.
+template <int U, int G, int LANES>
+__device__ __forceinline__ void cap_group(float (&s)[U][G], int c,
+                                          float cap_mul) {
+  constexpr int N = U * G, NT = (N + LANES - 1) / LANES;
+  float t[NT];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float x = 0.f;
+#pragma unroll
+    for (int i = j * LANES; i < N && i < (j + 1) * LANES; ++i)
+      if (i - j * LANES == c) x = s[i / G][i % G];
+    t[j] = capped(x, cap_mul);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    s[i / G][i % G] = __shfl_sync(0xffffffffu, t[i / LANES], i % LANES,
+                                  LANES);
+}
+
 template <int G, int LANES>
 __global__ void __launch_bounds__(kThreads)
 paged_split_fma_kernel(const float* __restrict__ q,
@@ -464,7 +512,7 @@ paged_split_fma_kernel(const float* __restrict__ q,
                        const int* __restrict__ context_lens,
                        float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                        int H, int KV, int hd, int page, int n_pages,
-                       int split_tokens, float scale_log2) {
+                       int split_tokens, float qk_mul, float cap_mul) {
   constexpr int kGroups = FmaCfg<LANES>::kGroups;
   constexpr int kTile = FmaCfg<LANES>::kTile;
   const int kvh = blockIdx.x, b = blockIdx.y;
@@ -488,7 +536,7 @@ paged_split_fma_kernel(const float* __restrict__ q,
     lane_row<LANES>(qb + g * hd, c, nch, qr[g]);
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      qr[g][e] *= scale_log2;
+      qr[g][e] *= qk_mul;
       acc[g][e] = 0.f;
     }
     m[g] = -INFINITY;
@@ -515,13 +563,15 @@ paged_split_fma_kernel(const float* __restrict__ q,
           }
         }
 #pragma unroll
+        for (int u = 0; u < kPerGroup; ++u)
+#pragma unroll
+          for (int g = 0; g < G; ++g) s[u][g] = group_sum<LANES>(s[u][g]);
+        if (cap_mul > 0.f) cap_group<kPerGroup, G, LANES>(s, c, cap_mul);
+#pragma unroll
         for (int u = 0; u < kPerGroup; ++u) {
           const bool valid = t0 + grp + u * kGroups < end;
 #pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float a = group_sum<LANES>(s[u][g]);
-            s[u][g] = valid ? a : -INFINITY;
-          }
+          for (int g = 0; g < G; ++g) s[u][g] = valid ? s[u][g] : -INFINITY;
         }
         // m stays -inf until the group has seen a token; base keeps
         // -inf - -inf away
@@ -637,7 +687,7 @@ struct Args {
   const void *q, *k_pages, *v_pages, *block_tables, *context_lens;
   float *ws_acc, *ws_ml;
   int B, H, KV, hd, page, n_pages, n_split, split_tokens;
-  float scale_log2;
+  float qk_mul, cap_mul;  // see capped()
   cudaStream_t stream;
 };
 
@@ -662,7 +712,7 @@ int launch_mma(const Args& a) {
       static_cast<const bf16*>(a.v_pages),
       static_cast<const int*>(a.block_tables),
       static_cast<const int*>(a.context_lens), a.ws_acc, a.ws_ml, a.H, a.KV,
-      a.page, a.n_pages, a.split_tokens, a.scale_log2);
+      a.page, a.n_pages, a.split_tokens, a.qk_mul, a.cap_mul);
   return (int)cudaGetLastError();
 }
 
@@ -683,7 +733,7 @@ int launch_fma(const Args& a) {
       static_cast<const float*>(a.v_pages),
       static_cast<const int*>(a.block_tables),
       static_cast<const int*>(a.context_lens), a.ws_acc, a.ws_ml, a.H, a.KV,
-      a.hd, a.page, a.n_pages, a.split_tokens, a.scale_log2);
+      a.hd, a.page, a.n_pages, a.split_tokens, a.qk_mul, a.cap_mul);
   return (int)cudaGetLastError();
 }
 
@@ -733,7 +783,8 @@ int launch_merge(const Args& a, void* out) {
 }  // namespace
 
 // Launches both passes on `stream`.  workspace: B * H * n_split * (hd + 2)
-// floats.  The splits must be whole 64-token tiles and cover the table:
+// floats.  softcap <= 0 means no cap.  The splits must be whole 64-token
+// tiles and cover the table:
 // split_tokens % 64 == 0 and (n_split - 1) * split_tokens < n_pages * page
 // <= n_split * split_tokens.  Returns cudaErrorInvalidValue for a split, a
 // grouping (H / KV in 1..8) or a head dim (a multiple of 16 up to 128, or
@@ -746,7 +797,8 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       void* workspace, int B, int H, int KV,
                                       int hd, int page, int n_pages,
                                       int n_split, int split_tokens,
-                                      int is_bf16, void* stream) {
+                                      float softcap, int is_bf16,
+                                      void* stream) {
   const long long n_tokens = (long long)n_pages * page;
   if (n_split < 1 || split_tokens <= 0 || split_tokens % kSplitAlign ||
       (long long)(n_split - 1) * split_tokens >= n_tokens ||
@@ -769,7 +821,10 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
   a.n_pages = n_pages;
   a.n_split = n_split;
   a.split_tokens = split_tokens;
-  a.scale_log2 = kLog2e / sqrtf((float)hd);
+  const bool cap = softcap > 0.f;
+  a.qk_mul = cap ? 1.0f / sqrtf((float)hd) / softcap
+                 : kLog2e / sqrtf((float)hd);
+  a.cap_mul = cap ? softcap * kLog2e : 0.f;
   a.stream = static_cast<cudaStream_t>(stream);
   const int e = launch_pass1(a, is_bf16 != 0);
   if (e != 0) return e;

@@ -4,13 +4,18 @@
 Same function as ``repro/kernels/paged_attention/ref.py:paged_attention_ref``
 except at ``context_lens == 0``: the JAX oracle then averages V uniformly,
 while the Pallas kernel (and the CUDA kernel of this port) returns zeros.
-This version pins the kernels' behaviour."""
+This version pins the kernels' behaviour.  ``softcap`` caps the scaled
+scores as ``tanh(s / c) * c`` before the mask and the softmax, as the
+JAX model's ``_sdpa`` does (``repro/models/layers.py:119-128``)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 
-def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens):
+def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
+                        softcap: Optional[float] = None):
     """q: [B, H, hd]; k/v_pages: [P, page, KV, hd];
     block_tables: [B, n_pages] int32; context_lens: [B] int32 -> [B, H, hd]."""
     B, H, hd = q.shape
@@ -22,6 +27,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens):
     v = v_pages[bt].reshape(B, S, KV, hd).float()
     qg = q.reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qg, k) * hd ** -0.5
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
     ctx = context_lens.long()
     valid = torch.arange(S, device=q.device)[None] < ctx[:, None]
     s = s.masked_fill(~valid[:, None, None], -1e30)

@@ -342,6 +342,7 @@ def policy_runs(predictor, prof: Optional[LatencyProfile], *,
                     router=_bandit(predictor, 0.0, seed=8, state=state)),
                 pool), recorded)
             extra.update(dr_value=est["value"], whatif_value=live,
+                         dr_direct=est["direct"],
                          dr_match_rate=est["match_rate"],
                          warm_start_events=len(logged.events))
         rows.append({"policy": name, "pool": "h100",

@@ -66,6 +66,22 @@ def cut_periods(cfg, periods: int):
         stages=(dataclasses.replace(stage, repeat=periods),))
 
 
+def alternate_windows(cfg, sizes):
+    """``cfg`` with the window layers of each stage's pattern taking the
+    window ``sizes`` in turn (1024 and 512: 1024, 512, 1024, ... in each
+    pattern), every other layer as it is: window layers of different
+    sizes, which no published config has and the model runs as the
+    reference does.  Only ``dataclasses.replace`` on the config, its
+    stages and their blocks."""
+    stages = []
+    for st in cfg.stages:
+        turn = iter(sizes * len(st.pattern))
+        stages.append(dataclasses.replace(st, pattern=tuple(
+            dataclasses.replace(b, window=next(turn))
+            if b.mixer == "window" else b for b in st.pattern)))
+    return dataclasses.replace(cfg, stages=tuple(stages))
+
+
 def build_engines(cfg, n_engines: int, size: str, device, seed: int = 0,
                   max_batch: Optional[int] = None,
                   dtype: Optional[torch.dtype] = None) -> List[InferenceEngine]:

@@ -310,7 +310,8 @@ def attn_decode(p, cfg: ModelConfig, x, k_pages, v_pages, block_tables,
     [P, page, KV, hd] of this layer; block_tables int32 [B, n_pages];
     context_lens int32 [B] counts the new token, which sits at position
     ``context_lens - 1``.  Writes the new K/V into its page slot in place
-    (one indexed store each), then attends through the paged kernel."""
+    (one indexed store each), then attends through the paged kernel, the
+    scores capped at ``cfg.logit_softcap`` where the config sets one."""
     B = x.shape[0]
     page = k_pages.shape[1]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -320,7 +321,8 @@ def attn_decode(p, cfg: ModelConfig, x, k_pages, v_pages, block_tables,
     idx = slot * page + pos % page
     k_pages.view(-1, *k_pages.shape[2:])[idx] = k_new[:, 0]
     v_pages.view(-1, *v_pages.shape[2:])[idx] = v_new[:, 0]
-    y = paged_attention(q[:, 0], k_pages, v_pages, block_tables, context_lens)
+    y = paged_attention(q[:, 0], k_pages, v_pages, block_tables, context_lens,
+                        cfg.logit_softcap)
     return y.reshape(B, 1, -1) @ p["wo"]
 
 
@@ -335,7 +337,8 @@ def window_decode(p, cfg: ModelConfig, x, k_ring, v_ring, ring_tables,
     and the paged kernel attends over rows 0 .. min(context_lens, size) -
     1: every row the ring holds once it has wrapped, else the positions
     so far, as JAX's mask ``slot <= pos | pos >= S`` keeps.  Rows hold K
-    after RoPE, so their order does not change the scores.  A free row of
+    after RoPE, so their order does not change the scores, which are capped
+    at ``cfg.logit_softcap`` where the config sets one.  A free row of
     length 0 writes row 0 of its own ring and attends over nothing
     (zeros); with length 1 it writes and reads row 0.  No host read."""
     B = x.shape[0]
@@ -349,7 +352,7 @@ def window_decode(p, cfg: ModelConfig, x, k_ring, v_ring, ring_tables,
     k_ring.view(-1, *k_ring.shape[2:])[idx] = k_new[:, 0]
     v_ring.view(-1, *v_ring.shape[2:])[idx] = v_new[:, 0]
     y = paged_attention(q[:, 0], k_ring, v_ring, ring_tables,
-                        context_lens.clamp_max(size))
+                        context_lens.clamp_max(size), cfg.logit_softcap)
     return y.reshape(B, 1, -1) @ p["wo"]
 
 

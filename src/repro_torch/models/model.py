@@ -44,8 +44,10 @@ Differences:
   forward only.
 
 Layers run ``full`` or ``window`` attention, ``mla`` or ``mamba`` mixers,
-each with a dense FFN, a MoE FFN or none; an attention softcap raises
-``NotImplementedError``.  Window and MLA layers keep their parameters
+each with a dense FFN, a MoE FFN or none; full and window attention cap
+their scores at ``cfg.logit_softcap`` where it is set, on every path, as
+the reference's ``_sdpa`` does (MLA has no cap there either); window
+layers may differ in size.  Window and MLA layers keep their parameters
 under ``attn``, as the JAX tree does.  Configs with stub-frontend prefix
 embeddings (``n_prefix_embeds``) hold ``prefix_proj``; ``model_forward``
 and ``prefill`` take the embeddings, and the engine serves such configs
@@ -141,10 +143,6 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: the port runs {'/'.join(MIXERS)} mixers with "
                 f"a {'/'.join(FFNS)} FFN, got mixer={blk.mixer!r} "
                 f"ffn={blk.ffn!r}")
-    if cfg.logit_softcap is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: attention softcap is not ported (the paged decode "
-            f"kernel has no softcap)")
 
 
 def padded_vocab(cfg: ModelConfig, multiple: int = 256) -> int:
@@ -536,11 +534,12 @@ def decode_step(model: Model, tokens, cache: dict):
     layers, P, page, KV, hd] through ``block_tables`` int32 [B, n_pages]
     and ``context_lens`` int32 [B] (counting the new token), and write the
     new K/V into the pages.  Window layers write the new K/V into their
-    ring, ``win_k``/``win_v`` [n win layers, slots * ring pages, page, KV,
-    hd], at row ``(context_lens - 1) % win_size`` of slot b's pages
-    (``win_tables`` int32 [B, ring pages]), and attend over its first
-    ``min(context_lens, win_size)`` rows, as ``WindowCache.decode_view``
-    gives them.  MLA layers write the new token's latent rows into
+    ring and attend over its first ``min(context_lens, S)`` rows: the
+    i-th window layer is layer ``rank`` of stack ``j``, ``(j, rank) =
+    win_where[i]``, and ``win_stacks[j]`` holds (K, V [its layers, slots *
+    ring pages, page, KV, hd], the identity table int32 [B, ring pages], S)
+    of one ring size S, the new row going to ``(context_lens - 1) % S`` of
+    slot b's pages, as ``WindowCache.decode_view`` gives them.  MLA layers write the new token's latent rows into
     ``ckv`` [n mla layers, B, S, kv_lora] and ``kr`` [n mla layers, B, S,
     rope] at ``context_lens - 1`` and attend over them, as
     ``LatentCache.decode_view`` gives them.  Mamba layers update ``conv``
@@ -556,9 +555,10 @@ def decode_step(model: Model, tokens, cache: dict):
                                   cache["v_pages"][i], cache["block_tables"],
                                   cache["context_lens"])
         elif kind == "win":
-            x = x + L.window_decode(blk.attn, cfg, x, cache["win_k"][i],
-                                    cache["win_v"][i], cache["win_tables"],
-                                    cache["context_lens"], cache["win_size"])
+            j, rank = cache["win_where"][i]
+            k, v, tables, size = cache["win_stacks"][j]
+            x = x + L.window_decode(blk.attn, cfg, x, k[rank], v[rank], tables,
+                                    cache["context_lens"], size)
         elif kind == "mla":
             x = x + L.mla_decode(blk.attn, cfg, x, cache["ckv"][i],
                                  cache["kr"][i], cache["context_lens"])

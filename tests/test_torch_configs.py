@@ -151,13 +151,6 @@ def test_random_init_draws_the_prefix_projection():
         device="cpu").top
 
 
-def test_softcap_still_raises():
-    cfg = dataclasses.replace(reduce_config(get_config("minicpm-2b")),
-                              logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        TM.init_params(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("args", [(26, 5, 512), (62, 5, 1024), (12, 3, 64),
                                   (4, 5, 8)])
 def test_local_global_stages_match_jax(args):

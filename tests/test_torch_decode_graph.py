@@ -4,7 +4,9 @@ page)], context lengths [max_batch]), free rows against the cache's scratch
 page, mamba states updated in place.  On the card the same step is replayed
 from a CUDA graph; here it runs eagerly, so these tests hold the padding,
 the scratch page and the in-place states to the JAX engine's jitted decode
-on bridged weights.  Greedy tokens must be identical."""
+on bridged weights.  Greedy tokens must be identical.  Reduced gemma3-27b
+runs with window layers of two sizes (16 and 8), and one step's calls of
+the paged kernel, which the card's graph records, are counted."""
 import dataclasses
 
 import numpy as np
@@ -24,6 +26,8 @@ from repro_torch.configs import base as port_base  # noqa: E402
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.engine.engine import EngineRequest, InferenceEngine  # noqa: E402
 from repro_torch.engine.kv_cache import PagedKVCache  # noqa: E402
+from repro_torch.launch.serve import alternate_windows  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
 
 MAX_LEN, PAGE = 64, 4
@@ -42,6 +46,11 @@ def _bridged(arch: str, seed: int):
     if arch == "hybrid":
         jcfg = _hybrid(jax_reduce(jax_get_config("mamba2-1.3b")), jax_base)
         tcfg = _hybrid(reduce_config(get_config("mamba2-1.3b")), port_base)
+    elif arch == "gemma3-27b-mixed":       # window layers of 16 and of 8
+        jcfg = alternate_windows(jax_reduce(jax_get_config("gemma3-27b")),
+                                 (16, 8))
+        tcfg = alternate_windows(reduce_config(get_config("gemma3-27b")),
+                                 (16, 8))
     else:
         jcfg, tcfg = jax_reduce(jax_get_config(arch)), \
             reduce_config(get_config(arch))
@@ -81,7 +90,9 @@ def _run(eng, req_cls, schedule):
 CASES = {"llama-one-shot": ("llama3.1-8b", 5, None, 18),
          "llama-chunked": ("llama3.1-8b", 5, 8, 18),
          "mamba": ("mamba2-1.3b", 0, None, None),
-         "hybrid": ("hybrid", 3, None, 18)}
+         "hybrid": ("hybrid", 3, None, 18),
+         "gemma3-mixed": ("gemma3-27b-mixed", 2, None, 18),
+         "gemma3-mixed-chunked": ("gemma3-27b-mixed", 2, 8, 18)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -99,7 +110,7 @@ def test_padded_step_matches_jax_engine_with_rows_finishing_and_pages_reused(
     assert got == want and len(got) == len(schedule)
     assert [len(got[rid]) for _, rid, _, _ in schedule] == \
         [m for *_, m in schedule]
-    assert port.prefill_chunk == (8 if case == "llama-chunked" else None)
+    assert port.prefill_chunk == (8 if case.endswith("chunked") else None)
     assert port.slots == [None] * 4 and port.graph_replays == 0
     decodes = [n for kind, n, _ in port.drain_events() if kind == "decode"]
     assert max(decodes) < port.max_batch          # free rows in every step
@@ -223,3 +234,34 @@ def test_table_view_has_the_fixed_width_whatever_the_lengths(max_len):
     cache.release(2)
     assert (table[2] == cache.scratch).all() and lens[2] == 1
     assert cache.utilization() == pytest.approx(1 / 64)
+
+
+@pytest.mark.parametrize("windows", [None, (16, 8)])
+def test_step_calls_the_paged_kernel_once_per_attention_layer(monkeypatch,
+                                                              windows):
+    """One decode step of reduced gemma3-27b (1 full layer, 7 window
+    layers) calls the paged kernel 8 times, what the card's graph records
+    and each replay counts: with one window size as before the ring
+    stacks (its one stack the cache's own tensors), and with window layers
+    of 16 and 8 over two stacks."""
+    _, tcfg, _, model = _bridged("gemma3-27b" if windows is None
+                                 else "gemma3-27b-mixed", 2)
+    eng = InferenceEngine(tcfg, model, max_batch=3, max_len=MAX_LEN,
+                          page_size=PAGE, device="cpu")
+    calls = []
+    real = TL.paged_attention
+    monkeypatch.setattr(TL, "paged_attention",
+                        lambda *a: calls.append(a[2].shape) or real(*a))
+    eng._decode_body()
+    assert len(calls) == 8
+    stacks = eng._view["win_stacks"]
+    if windows is None:
+        (k, v, tables, size), = stacks
+        (ring,) = eng.window.stacks
+        assert k is ring.k and v is ring.v
+        assert tables is ring.tables and size == 16
+        assert k.shape == (7, 3 * 16 // PAGE, PAGE, 1, tcfg.head_dim)
+    else:
+        assert [st[3] for st in stacks] == [16, 8]
+        assert [st[0].shape[0] for st in stacks] == [4, 3]
+    assert calls.count(eng.cache.k_pages.shape[1:]) == 1

@@ -138,16 +138,20 @@ def test_decode_steps_over_paged_cache(bridged):
 
 def test_unported_mixers_raise():
     """Every mixer of the JAX package is ported (window layers since the
-    window slice); what stays unported raises: an attention softcap,
-    which no config sets, a mixer that neither package knows and an arch
-    id that neither registers."""
+    window slice), and an attention softcap, which no config sets, since
+    the softcap slice (``test_torch_softcap.py`` holds it to the JAX
+    package); what stays unported raises: a mixer that neither package
+    knows and an arch id that neither registers."""
     import dataclasses
     from repro_torch.configs.base import BlockSpec
     cfg = reduce_config(get_config("llama3.1-8b"))
     assert TM.MIXERS == ("full", "window", "mla", "mamba")
     capped = dataclasses.replace(cfg, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        TM.init_params(capped, device="cpu")
+    TM.check_supported(capped)
+    model = TM.init_params(capped, dtype=torch.float32, device="cpu")
+    logits, _ = TM.prefill(model, torch.arange(1, 9)[None])
+    assert model.cfg.logit_softcap == 30.0
+    assert bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError, match="unknown mixer"):
         BlockSpec("linear", "dense")
     with pytest.raises(KeyError, match="supported"):

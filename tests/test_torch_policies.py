@@ -11,6 +11,7 @@ import dataclasses
 import json
 import types
 
+import numpy as np
 import pytest
 from conftest import ConstPredictor
 
@@ -294,6 +295,88 @@ def test_replay_whatif_and_dr_estimate_equal_jax():
     assert 0.0 <= got["value"] <= 1.0 and got["dr"]["n"] > 0
 
 
+class _Trace:
+    """Stands in for a ``DecisionTrace``: ``dr_estimate`` reads only its
+    routed events."""
+
+    def __init__(self, events):
+        self.events = events
+
+    def route_events(self):
+        return self.events
+
+
+class _Picks:
+    """An offline policy that picks a fixed instance per request."""
+
+    def __init__(self, picks):
+        self.picks = picks
+
+    def offline_choose(self, event):
+        return self.picks[event["rid"]]
+
+
+def _event(rid, cands, gid, propensity, reward):
+    return {"rid": rid, "gid": gid, "propensity": propensity,
+            "outcome": {"reward": reward},
+            "candidates": [{"iid": i, "hw": hw, "bucket": b}
+                           for i, (hw, b) in enumerate(cands)]}
+
+
+def _synthetic(seed: int, n: int = 60):
+    """A seeded trace of ``n`` routed events (1-3 candidates on two
+    hardware kinds and three load buckets, propensities in [0.02, 1],
+    rewards 0 or 1) and a seeded policy over it."""
+    rng = np.random.default_rng(seed)
+    events, picks = [], {}
+    for rid in range(n):
+        k = int(rng.integers(1, 4))
+        cands = [(str(rng.choice(["H100", "A40"])), int(rng.integers(0, 3)))
+                 for _ in range(k)]
+        events.append(_event(rid, cands, int(rng.integers(0, k)),
+                             float(rng.uniform(0.02, 1.0)),
+                             float(rng.integers(0, 2))))
+        picks[rid] = int(rng.integers(0, k))
+    return _Trace(events), _Picks(picks)
+
+
+def _dr_bounds(est, max_weight):
+    """What the estimator guarantees: the direct value and the match rate
+    in [0, 1] (rewards are 0 or 1), and each matched event's residual
+    ``w (reward - Q)`` at most ``max_weight`` in size."""
+    return (0.0 <= est["direct"] <= 1.0 and 0.0 <= est["match_rate"] <= 1.0
+            and np.isfinite(est["value"])
+            and abs(est["value"] - est["direct"])
+            <= max_weight * est["match_rate"])
+
+
+@pytest.mark.parametrize("max_weight", [20.0, 5.0])
+def test_dr_estimate_keeps_its_bounds_and_may_leave_zero_one(max_weight):
+    """On seeded synthetic traces the doubly-robust value lies within
+    ``max_weight * match_rate`` of the direct value, as the reference's
+    does (equal), and not always in [0, 1]: one matched reward of 1 at
+    propensity 0.05 among nine of 0 (Q = 0.1) lifts it to 0.1 + (min(20,
+    max_weight) * 0.9 - 0.9) / 10: 1.81 at the default weight cap."""
+    for seed in range(20):
+        trace, policy = _synthetic(seed)
+        est = TRP.dr_estimate(trace, policy, max_weight=max_weight)
+        assert est == JRP.dr_estimate(trace, policy, max_weight=max_weight)
+        assert _dr_bounds(est, max_weight) and est["n"] == 60
+    events = [_event(rid, [("H100", 0)], 0, 1.0 if rid else 0.05,
+                     0.0 if rid else 1.0) for rid in range(10)]
+    est = TRP.dr_estimate(_Trace(events), _Picks({i: 0 for i in range(10)}),
+                          max_weight=max_weight)
+    assert est == JRP.dr_estimate(_Trace(events),
+                                  _Picks({i: 0 for i in range(10)}),
+                                  max_weight=max_weight)
+    assert est["match_rate"] == 1.0
+    assert est["direct"] == pytest.approx(0.1)
+    assert est["value"] == pytest.approx(0.1 + (min(20.0, max_weight) * 0.9
+                                                - 0.9) / 10)
+    assert _dr_bounds(est, max_weight)
+    assert (est["value"] > 1.0) == (max_weight == 20.0)     # 1.81, 0.46
+
+
 def test_port_trace_replays_in_jax_and_back():
     """A trace recorded by the port, loaded by the reference, replays to
     the same what-if result in both packages."""
@@ -370,4 +453,7 @@ def test_policy_runs_account_for_every_request():
     assert 0.0 <= by["sharded"]["max_staleness_s"] <= 1.0
     assert 0.0 <= by["bandit"]["dr_value"] <= 1.0
     assert 0.0 <= by["bandit"]["whatif_value"] <= 1.0
+    b = by["bandit"]
+    assert _dr_bounds({"value": b["dr_value"], "direct": b["dr_direct"],
+                       "match_rate": b["dr_match_rate"]}, 20.0)
     assert by["bandit"]["warm_start_events"] > 0

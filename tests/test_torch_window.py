@@ -6,8 +6,10 @@ JAX ring, ``decode_step`` of reduced gemma3-27b (5 window layers and a
 full one, then 2 window layers; window 16) across the ring's wrap, and the
 engine's greedy tokens for reduced gemma3-27b, gemma3-12b and
 mixtral-8x22b, one-shot and chunked.  Plus a slot reused after a longer
-request, a free row's writes, the one-ring-size limit, and the plain
-paged and flash kernels at gemma3-12b's head dim 256.  Tolerances: 1e-4
+request, a free row's writes, window layers of two sizes (16 and 8: one
+ring stack each, their bytes, prefill into them, decode steps and engine
+tokens across both wraps), and the plain paged and flash kernels at
+gemma3-12b's head dim 256.  Tolerances: 1e-4
 for fp32 logits and layer outputs (the frameworks order their sums
 differently), exact for greedy tokens and ring contents, and the kernel
 tests' 2e-5 (fp32) and 2e-2 (bf16) for the plain kernels."""
@@ -35,6 +37,7 @@ from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.engine.engine import EngineRequest, InferenceEngine  # noqa: E402
 from repro_torch.engine.kv_cache import PagedKVCache  # noqa: E402
 from repro_torch.engine.window_cache import WindowCache  # noqa: E402
+from repro_torch.launch.serve import alternate_windows  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_attention  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -73,10 +76,12 @@ def _one_window_layer(cfg):
 
 
 def _ring_rows(cache: WindowCache, layer: int, slot: int):
-    """(k, v) [S, KV, hd]: ring rows 0..S-1 of ``slot`` in ``layer``."""
-    n, page = cache.pages_per_slot, cache.page_size
+    """(k, v) [S, KV, hd]: ring rows 0..S-1 of ``slot`` in ``layer`` of a
+    cache of one ring size."""
+    (ring,) = cache.stacks
+    n, page = ring.pages_per_slot, ring.page_size
     return tuple(t[layer, slot * n:(slot + 1) * n].reshape(
-        n * page, *t.shape[3:])[:cache.size] for t in (cache.k, cache.v))
+        n * page, *t.shape[3:])[:ring.size] for t in (ring.k, ring.v))
 
 
 def _jax_layers(jcfg):
@@ -110,9 +115,10 @@ def test_prefill_into_the_ring_matches_to_ring(L, max_len, page):
     cache = WindowCache(cfg, 3, max_len, page, dtype=torch.float32,
                         device="cpu")
     S = min(WINDOW, max_len)
-    assert cache.size == S and cache.pages_per_slot == -(-S // page)
-    assert torch.equal(cache.tables, torch.arange(
-        3 * cache.pages_per_slot, dtype=torch.int32).view(3, -1))
+    (ring,) = cache.stacks
+    assert ring.size == S and ring.pages_per_slot == -(-S // page)
+    assert torch.equal(ring.tables, torch.arange(
+        3 * ring.pages_per_slot, dtype=torch.int32).view(3, -1))
     rng = np.random.default_rng(L)
     k = rng.standard_normal((1, L, 1, 16)).astype(np.float32)
     v = rng.standard_normal((1, L, 1, 16)).astype(np.float32)
@@ -122,9 +128,9 @@ def test_prefill_into_the_ring_matches_to_ring(L, max_len, page):
         JM._to_ring(jnp.asarray(k), S))[0])
     np.testing.assert_array_equal(_np(got_v), np.asarray(
         JM._to_ring(jnp.asarray(v), S))[0])
-    n = cache.pages_per_slot
-    assert not cache.k[0, :n].any() and not cache.k[0, 2 * n:].any()
-    assert not cache.k[0, n:2 * n].reshape(-1, 1, 16)[S:].any()
+    n = ring.pages_per_slot
+    assert not ring.k[0, :n].any() and not ring.k[0, 2 * n:].any()
+    assert not ring.k[0, n:2 * n].reshape(-1, 1, 16)[S:].any()
 
 
 def test_window_decode_matches_jax_across_the_wrap():
@@ -141,7 +147,7 @@ def test_window_decode_matches_jax_across_the_wrap():
     # so the kernel must be told min(ctx, 16), not the table's 20 rows
     cache = WindowCache(_one_window_layer(tcfg), 3, 64, 5,
                         dtype=torch.float32, device="cpu")
-    S = cache.size
+    S = cache.stacks[0].size
     rng = np.random.default_rng(0)
     jk, jv = [], []
     for slot, n in enumerate(lens):
@@ -154,15 +160,14 @@ def test_window_decode_matches_jax_across_the_wrap():
                             torch.from_numpy(np.array(v[0])))])
     jk, jv = jnp.stack(jk), jnp.stack(jv)
     pos = np.array(lens, np.int32)
-    view = cache.decode_view()
+    (win_k, win_v, tables, size), = cache.decode_view()["win_stacks"]
     for step in range(6):
         x = rng.standard_normal((3, 1, tcfg.d_model)).astype(np.float32)
         jy, (jk, jv) = JL.attn_decode(jp, jcfg, jnp.asarray(x), jk, jv,
                                       jnp.asarray(pos), WINDOW)
-        ty = TL.window_decode(tp, tcfg, torch.from_numpy(x),
-                              view["win_k"][0], view["win_v"][0],
-                              view["win_tables"],
-                              torch.from_numpy(pos + 1), view["win_size"])
+        ty = TL.window_decode(tp, tcfg, torch.from_numpy(x), win_k[0],
+                              win_v[0], tables, torch.from_numpy(pos + 1),
+                              size)
         np.testing.assert_allclose(_np(ty), _np(jy), **TOL)
         for slot in range(3):
             k_ring, v_ring = _ring_rows(cache, 0, slot)
@@ -229,7 +234,7 @@ def test_decode_step_matches_jax_across_the_wrap(L):
                          max_len=max_len, dtype=torch.float32, device="cpu")
     win = WindowCache(tcfg, 2, max_len, 4, dtype=torch.float32, device="cpu")
     kinds = [k for k, _ in TM.layer_caches(tcfg)]
-    assert pages.n_attn_layers == 1 and win.k.shape[0] == 7
+    assert pages.n_attn_layers == 1 and win.stacks[0].k.shape[0] == 7
     for b in range(2):
         pages.allocate(b, L)
         idx = pages.token_index(b, 0, L)
@@ -294,8 +299,9 @@ def test_engine_tokens_match_jax_engine(arch, chunk, jax_tokens):
     got = _serve(eng, EngineRequest, _prompts(tcfg.vocab_size))
     assert got == jax_tokens(arch, chunk)
     assert all(len(g) == 8 for g in got.values()) and len(got) == 5
-    assert eng.window.size == WINDOW
-    assert tuple(eng.window.k.shape[:2]) == (
+    (ring,) = eng.window.stacks
+    assert ring.size == WINDOW
+    assert tuple(ring.k.shape[:2]) == (
         sum(b.mixer == "window" for b in tcfg.layer_list()), 3 * 4)
     if arch == "mixtral-8x22b":
         assert eng.cache is None            # every layer is a window layer
@@ -320,7 +326,8 @@ def test_slot_reused_after_a_longer_request(arch):
                                page_size=4, device="cpu")
     eng = port()
     first = _serve(eng, EngineRequest, [long])
-    stale = eng.window.k.clone()
+    (ring,) = eng.window.stacks
+    stale = ring.k.clone()
     assert stale[:, 3].any()                 # rows 12..15 of the ring
     eng.completed.clear()
     eng.submit(EngineRequest(rid=1, tokens=list(short), prompt_len=6,
@@ -335,7 +342,7 @@ def test_slot_reused_after_a_longer_request(arch):
                      max_new_tokens=8))
     assert {r.rid: r.generated for r in jeng.run_until_drained()}[1] == alone
     # rows 14 and 15 (page 3) were not rewritten: still the first's
-    assert torch.equal(eng.window.k[:, 3, 2:], stale[:, 3, 2:])
+    assert torch.equal(ring.k[:, 3, 2:], stale[:, 3, 2:])
 
 
 @pytest.mark.parametrize("ctx", [0, 1])
@@ -347,22 +354,23 @@ def test_free_row_writes_only_its_own_ring(ctx):
     cache = WindowCache(_one_window_layer(tcfg), 3, 64, 4,
                         dtype=torch.float32, device="cpu")
     g = torch.Generator().manual_seed(0)
-    cache.k.normal_(generator=g)
-    cache.v.normal_(generator=g)
-    n = cache.pages_per_slot
-    for t in (cache.k, cache.v):
+    (ring,) = cache.stacks
+    ring.k.normal_(generator=g)
+    ring.v.normal_(generator=g)
+    n = ring.pages_per_slot
+    for t in (ring.k, ring.v):
         t[0, :n] = float("nan")
         t[0, 2 * n:] = float("nan")
-    before = (cache.k.clone(), cache.v.clone())
+    before = (ring.k.clone(), ring.v.clone())
     tp = TL.init_attention(tcfg, g, torch.float32)
     x = torch.randn((1, 1, tcfg.d_model), generator=g)
-    y = TL.window_decode(tp, tcfg, x, cache.k[0], cache.v[0],
-                         cache.tables[1:2],
-                         torch.tensor([ctx], dtype=torch.int32), cache.size)
+    y = TL.window_decode(tp, tcfg, x, ring.k[0], ring.v[0],
+                         ring.tables[1:2],
+                         torch.tensor([ctx], dtype=torch.int32), ring.size)
     assert bool(torch.isfinite(y).all())
     if ctx == 0:
         assert not y.any()
-    for t, t0 in zip((cache.k, cache.v), before):
+    for t, t0 in zip((ring.k, ring.v), before):
         assert t[0, :n].isnan().all() and t[0, 2 * n:].isnan().all()
         rows = t[0, n:2 * n].reshape(n * 4, -1)
         rows0 = t0[0, n:2 * n].reshape(n * 4, -1)
@@ -382,23 +390,134 @@ def test_engine_free_rows_write_only_row_zero():
     eng.step()
     eng.step()
     assert eng._view["context_lens"].tolist() == [22, 0, 0]
-    assert eng._view["win_k"] is eng.window.k
-    n = eng.window.pages_per_slot
-    free = eng.window.k[:, n:].reshape(2, 2, n * 4, -1)   # slots 1 and 2
+    (ring,) = eng.window.stacks
+    assert eng._view["win_stacks"][0][0] is ring.k
+    n = ring.pages_per_slot
+    free = ring.k[:, n:].reshape(2, 2, n * 4, -1)   # slots 1 and 2
     assert free[:, :, 0].any() and not free[:, :, 1:].any()
 
 
-def test_mixed_window_sizes_raise():
-    """No config mixes window sizes; the ring cache holds one and says so."""
-    cfg = reduce_config(get_config("gemma3-27b"))
-    mixed = dataclasses.replace(cfg, num_layers=2, stages=(port_base.Stage(
-        pattern=(port_base.BlockSpec("window", "dense", 16),
-                 port_base.BlockSpec("window", "dense", 8)), repeat=1),))
-    with pytest.raises(NotImplementedError, match="one ring size"):
-        WindowCache(mixed, 2, 64, dtype=torch.float32, device="cpu")
-    model = TM.init_params(mixed, seed=0, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(mixed, model, max_batch=2, max_len=64, device="cpu")
+# -- window layers of two sizes ----------------------------------------------
+
+MIXED = (WINDOW, 8)          # the window layers of each pattern take turns
+
+
+@functools.lru_cache(maxsize=None)
+def _bridged_mixed():
+    """Reduced gemma3-27b (5 window + 1 full, then 2 window layers) with
+    its window layers at 16, 8, 16, 8, 16 and 16, 8, bridged."""
+    jcfg = alternate_windows(jax_reduce(jax_get_config("gemma3-27b")), MIXED)
+    tcfg = alternate_windows(reduce_config(get_config("gemma3-27b")), MIXED)
+    params = JM.init_params(jcfg, jax.random.PRNGKey(6), dtype=jnp.float32)
+    model = from_jax_params(jax.tree.map(np.asarray, params), tcfg,
+                            device="cpu")
+    return jcfg, tcfg, params, model
+
+
+def _windows(cfg):
+    return [b.window for b in cfg.layer_list() if b.mixer == "window"]
+
+
+@pytest.mark.parametrize("max_len,page", [(64, 4), (64, 5), (12, 4),
+                                          (8, 16)])
+def test_mixed_windows_keep_one_stack_per_ring_size(max_len, page):
+    """One stack per S = min(window, max_len), in the order the sizes come,
+    each layer at its rank in its stack; the rings' bytes are the sum over
+    layers of slots * ceil(S / page) * page * KV * hd * 2 * itemsize.  At
+    max_len 8 both windows give rings of 8: one stack."""
+    _, tcfg, _, _ = _bridged_mixed()
+    assert _windows(tcfg) == [16, 8, 16, 8, 16, 16, 8]
+    cache = WindowCache(tcfg, 3, max_len, page, dtype=torch.float32,
+                        device="cpu")
+    sizes = [min(w, max_len) for w in _windows(tcfg)]
+    order = list(dict.fromkeys(sizes))
+    assert [st.size for st in cache.stacks] == order
+    for i, (j, rank) in enumerate(cache.where):
+        assert order[j] == sizes[i]
+        assert rank == sizes[:i].count(sizes[i])
+    for st in cache.stacks:
+        assert st.k.shape[0] == sizes.count(st.size)
+        assert torch.equal(st.tables, torch.arange(
+            3 * st.pages_per_slot, dtype=torch.int32).view(3, -1))
+    per_row = tcfg.num_kv_heads * tcfg.head_dim * 2 * 4
+    assert cache.nbytes == sum(3 * -(-S // page) * page * per_row
+                               for S in sizes)
+    assert len(order) == (1 if max_len == 8 else 2)
+
+
+@pytest.mark.parametrize("L", [5, 12, 37])
+def test_mixed_window_prefill_into_rings_matches_to_ring(L):
+    """``WindowCache.write`` puts each layer's last min(L, S) rows at t % S
+    of its own ring, S = 16 or 8, as ``_to_ring`` does."""
+    _, tcfg, _, _ = _bridged_mixed()
+    cache = WindowCache(tcfg, 2, 64, 4, dtype=torch.float32, device="cpu")
+    rng = np.random.default_rng(L)
+    n = len(cache.where)
+    kv = rng.standard_normal((n, 2, L, 1, tcfg.head_dim)).astype(np.float32)
+    cache.write(1, [(torch.from_numpy(k), torch.from_numpy(v))
+                    for k, v in kv])
+    for i, ((j, rank), w) in enumerate(zip(cache.where, _windows(tcfg))):
+        st = cache.stacks[j]
+        npg = st.pages_per_slot
+        for t, a in zip((st.k, st.v), kv[i]):
+            got = t[rank, npg:2 * npg].reshape(npg * 4, -1)[:w]
+            want = np.asarray(JM._to_ring(jnp.asarray(a[None]), w))[0]
+            np.testing.assert_array_equal(_np(got), want.reshape(w, -1))
+            assert not t[rank, :npg].any()           # slot 0 untouched
+
+
+@pytest.mark.parametrize("L", [7, 13])
+def test_mixed_window_decode_step_matches_jax_across_the_wrap(L):
+    """Two rows of L tokens, ten decode steps: the rings of 8 wrap first
+    (at L=13 they have wrapped already), the rings of 16 within the
+    steps; every step's logits within 1e-4 of the JAX ring decode."""
+    jcfg, tcfg, params, model = _bridged_mixed()
+    toks = np.random.default_rng(L).integers(0, tcfg.vocab_size, (2, L))
+    max_len = 48
+    jl, jcache = JM.prefill(params, jcfg, jnp.asarray(toks, jnp.int32),
+                            max_len=max_len)
+    tl, states = TM.prefill(model, torch.from_numpy(toks))
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    pages = PagedKVCache(tcfg, num_pages=24, page_size=4, slots=2,
+                         max_len=max_len, dtype=torch.float32, device="cpu")
+    win = WindowCache(tcfg, 2, max_len, 4, dtype=torch.float32, device="cpu")
+    assert [st.size for st in win.stacks] == [16, 8]
+    kinds = [k for k, _ in TM.layer_caches(tcfg)]
+    for b in range(2):
+        pages.allocate(b, L)
+        idx = pages.token_index(b, 0, L)
+        full = [st for kind, st in zip(kinds, states) if kind == "kv"]
+        for layer, (k, v) in enumerate(full):
+            pages.write(layer, idx, k[b], v[b])
+        win.write(b, [(k[b], v[b]) for kind, (k, v) in zip(kinds, states)
+                      if kind == "win"])
+    nxt = np.asarray(jnp.argmax(jl, axis=-1))
+    for _ in range(10):
+        jl, jcache = JM.decode_step(params, jcfg, jcache,
+                                    jnp.asarray(nxt[:, None], jnp.int32))
+        for b in range(2):
+            pages.extend(b, 1)
+        view = {**pages.decode_view(), **win.decode_view()}
+        tl = TM.decode_step(model, torch.tensor(nxt, dtype=torch.long), view)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+        nxt = np.asarray(jnp.argmax(jl, axis=-1))
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+def test_mixed_window_engine_tokens_match_jax_engine(chunk):
+    """Five requests over three slots, prompts past both windows, one-shot
+    and in chunks of 8: the greedy tokens equal the JAX engine's."""
+    jcfg, tcfg, params, model = _bridged_mixed()
+    prompts = _prompts(tcfg.vocab_size)
+    eng = InferenceEngine(tcfg, model, max_batch=3, max_len=64,
+                          prefill_chunk=chunk, page_size=4, device="cpu")
+    got = _serve(eng, EngineRequest, prompts)
+    want = _serve(JEngine(jcfg, params, max_batch=3, max_len=64,
+                          prefill_chunk=chunk), JReq, prompts)
+    assert got == want and len(got) == 5
+    assert [st.size for st in eng.window.stacks] == [16, 8]
+    assert [tuple(st.k.shape[:2]) for st in eng.window.stacks] == [
+        (4, 3 * 4), (3, 3 * 2)]
 
 
 def test_full_width_ring_bytes():
