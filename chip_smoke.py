@@ -210,7 +210,7 @@ JAX.  Phases, each printing one JSON line:
    layers, 2,724,878,592 parameters, WSD) and mamba2-1.3b whole, fp32
    masters drawn on the card, ``make_grad_accum_step`` at accum 4 (2 for
    mamba) x micro-batch 2 x 4096 tokens (``cut``: train_4k's global batch
-   of 256 sequences cut to 8 or 4), one untimed step and three timed: step
+   of 256 sequences cut to 8 or 4), one untimed step and two timed: step
    seconds, tokens/s, ``mfu`` (6 x parameters x tokens over step seconds
    x 989e12; attention flops left out), peak memory, losses, grad norm,
    lr; after the first step every leaf must hold a finite, non-zero
@@ -249,9 +249,42 @@ JAX.  Phases, each printing one JSON line:
    ``sharded_train``: one ``make_train_step`` of minicpm-2b whole (fp32
    masters, 2 x 4096 tokens) on DTensor masters placed by the FSDP specs
    against the unsharded step: the loss within 1e-4 relative, every
-   leaf's update at cosine >= 0.9999 with its norm within 0.1%.  Each
-   line gives the run's wall seconds and launches; the ``phase7_done``
-   line the phase's seconds; the process group is destroyed at its end.
+   leaf's update at cosine >= 0.9999 with its norm within 0.1%.  (c)
+   ``engine_under_mesh`` lines: the engine under that mesh
+   (``InferenceEngine(..., ctx=)``: a placed copy of the weights, the
+   reference's ring cache, prefill and the chunk step with their kernels
+   under ``local_map``, each prompt spliced into its slot, the ring decode
+   captured into the engine's CUDA graph) beside the unsharded engine (B1
+   over pages) on the same weights and requests, one engine at a time, 8
+   slots of 4096 tokens, 32 new tokens a request (``MESH_ENGINES``):
+   llama3.1-8b whole in bf16 (12 requests of 128-2048 prompt tokens,
+   one-shot and then in 512-token chunks); mamba2-1.3b and
+   deepseek-v2-lite-16b whole in bf16, 6 requests, one-shot.  Each line gives both engines' TTFT, TPOT, peak memory,
+   ``capture_s``, ``graph_replays`` and launches, the memory
+   ``placed_copy`` added, and (b)'s eager ring decode step beside them (a
+   ring of 1032 rows, not 4096).  Every request must finish, every decode step be a replay, the
+   launches be exact (B2 once per attention layer per prefill call, B3
+   once per mamba layer per prefill, no B1 under the mesh).  The mesh
+   engine's tokens are held pick by pick to the unsharded ring path
+   (plain tensors, eager, the same admission, ``splice_ring`` and
+   ``ring_decode_step``) fed the same tokens: a different pick only at a
+   near tie, and the logits at most ``NEAR_TIE_ULPS`` bf16 spacings apart
+   (``logit_diff_spacings``: per pick, the largest difference at the
+   second path's 20 top logits).  Against the unsharded engine (B1 over
+   pages) the tokens are compared as in (b), and a difference outside a
+   near tie must be the ring path's own: the same ring path fed the
+   unsharded engine's tokens (the control) picks the mesh's token there,
+   its logits within ``CONTROL_SPACINGS`` of the unsharded engine's.  For
+   deepseek-v2-lite-16b the warm-up and capture must issue every MoE
+   layer's three all-reduces (the expert and shared-expert sums, aux's
+   mean) as functional NCCL all-reduces (counted where the layer calls
+   them), and one replay's trace must name NCCL's one-rank kernel
+   (``onerank.cu``: at world size 1 NCCL runs the mean as that kernel and
+   the sums as device copies); every mesh run's line gives one replay's
+   device time by kernel, and every one-shot run one admission's wall
+   time beside its kernels' device time (``admission_trace``).  Each line
+   gives the run's wall seconds and launches; the ``phase7_done`` line
+   the phase's seconds; the process group is destroyed at its end.
 
 Then the ``kernels`` line (``smoke_s``: the run's seconds so far, the
 build included; ``launches``: the count from the phase-4 run of
@@ -1696,7 +1729,7 @@ TRAIN_TOL = {"loss_rel": 1e-2, "cosine": 0.99, "norm_rel": 2e-2,
 TRAIN_TOL_F32 = {"loss_rel": 1e-4, "cosine": 0.9999, "norm_rel": 1e-3}
 # (arch, grad-accumulation micro-batches): micro-batch 2 x 4096 tokens
 TRAIN_FULL = (("minicpm-2b", 4), ("mamba2-1.3b", 2))
-TRAIN_MICRO, TRAIN_SEQ, TRAIN_TIMED = 2, 4096, 3
+TRAIN_MICRO, TRAIN_SEQ, TRAIN_TIMED = 2, 4096, 2
 
 
 def _free_card():
@@ -1832,7 +1865,7 @@ def train_full_width(arch: str, accum: int, card: str):
     """(b) ``arch`` whole at full width: fp32 masters drawn on the card from
     seed 0, AdamW (lr 3e-4, 100 total steps, 10 warmup, WSD where the
     config prescribes it), ``make_grad_accum_step`` over ``accum``
-    micro-batches of 2 x 4096 tokens; one untimed step, then three timed.
+    micro-batches of 2 x 4096 tokens; one untimed step, then two timed.
     After the first step every leaf must hold a finite, non-zero
     gradient.  Returns the model for (c)."""
     import torch
@@ -1896,7 +1929,7 @@ def train_full_width(arch: str, accum: int, card: str):
            "data_s": data_s, "nvidia_smi": card,
            "cut": f"batch: {tokens} tokens a step, train_4k's global batch "
                   f"cut from 256 to {accum * TRAIN_MICRO} sequences of "
-                  f"{TRAIN_SEQ}; 4 steps"}
+                  f"{TRAIN_SEQ}; {1 + TRAIN_TIMED} steps"}
     res["why_not_llama3.1-8b"] = (f"{full:,} parameters x 16 B (fp32 "
                                   f"masters, grads, m, v) exceed 80 GB")
     emit(res)
@@ -2018,6 +2051,11 @@ DRYRUN_CELLS = ((False, "internvl2-1b", "train_4k"),
                 (True, "deepseek-v2-lite-16b", "decode_32k"))
 SHARD_B, SHARD_L, SHARD_STEPS = 8, 1024, 8
 NEAR_TIE_ULPS = 2     # a top-2 gap two kernels' bf16 rounding may reverse
+# (c)'s control: B1 over pages against the ring's ``_sdpa`` on one history
+# differs by up to 3.0 bf16 spacings in llama3.1-8b's bf16 logits on an
+# H100; a fault of the ring path, which the control shares with the mesh,
+# shows far above
+CONTROL_SPACINGS = 4
 
 
 def dryrun_phase():
@@ -2049,11 +2087,17 @@ def _zero_counts():
         f.launches = 0
 
 
-def _top2(logits):
-    """(top-2 gap, bf16 spacing at the top logit) of one row of logits."""
-    top = logits.float().topk(2, dim=-1).values
-    lead = max(abs(float(top[0])), 2.0 ** -126)
-    return float(top[0] - top[1]), 2.0 ** (math.floor(math.log2(lead)) - 7)
+def _top2_rows(logits) -> list:
+    """Per row of logits [B, V]: (top-2 gap, bf16 spacing at the top
+    logit)."""
+    top = logits.float().topk(2, dim=-1).values.tolist()
+    return [(a - b, 2.0 ** (math.floor(math.log2(max(abs(a), 2.0 ** -126)))
+                            - 7)) for a, b in top]
+
+
+def _by_row(step_logits) -> list:
+    """Per row, per step: ``_top2_rows`` of each step's logits [B, V]."""
+    return [list(r) for r in zip(*(_top2_rows(l) for l in step_logits))]
 
 
 def _sharded_prefill(arch: str, ctx, card: str, want: dict, before=None):
@@ -2172,20 +2216,20 @@ def _ring_decode(model, ctx, logits, states):
             time.perf_counter() - t0, _path_counts())
 
 
-def _compare_tokens(ring, ring_logits, paged, paged_logits) -> dict:
+def _compare_tokens(ring, ring_top2, paged, paged_top2) -> dict:
     """Greedy tokens of the ring decode against the paged one, row by row
-    up to the first difference; a difference must be a near tie (both
-    paths' top-2 logit gaps within ``NEAR_TIE_ULPS`` bf16 spacings of
-    their top logit), after which the rows diverge and are not compared
-    further."""
+    up to the first difference (``ring[b]``, ``paged[b]``: row b's tokens;
+    ``*_top2[b][t]``: the top-2 gap and bf16 spacing of the logits that
+    picked token t); a difference must be a near tie (both paths' top-2
+    logit gaps within ``NEAR_TIE_ULPS`` bf16 spacings of their top logit),
+    after which the rows diverge and are not compared further."""
     flips, bad, compared = [], [], 0
-    for b in range(ring.shape[0]):
-        for t in range(ring.shape[1]):
+    for b in range(len(ring)):
+        for t in range(min(len(ring[b]), len(paged[b]))):
             compared += 1
-            if int(ring[b, t]) == int(paged[b, t]):
+            if ring[b][t] == paged[b][t]:
                 continue
-            (g_r, u_r), (g_p, u_p) = (_top2(ring_logits[t][b]),
-                                      _top2(paged_logits[t][b]))
+            (g_r, u_r), (g_p, u_p) = ring_top2[b][t], paged_top2[b][t]
             tie = g_r <= NEAR_TIE_ULPS * u_r and g_p <= NEAR_TIE_ULPS * u_p
             (flips if tie else bad).append(
                 {"row": b, "step": t, "top2_gap_ring": g_r,
@@ -2263,11 +2307,407 @@ def _sharded_train(ctx, card: str):
     return counts
 
 
+# (c) the engine under the mesh: (arch, dtype, requests, prefill chunk sizes
+# (None: one-shot))
+MESH_ENGINES = (("llama3.1-8b", "bfloat16", 12, (None, 512)),
+                ("mamba2-1.3b", "bfloat16", 6, (None,)),
+                ("deepseek-v2-lite-16b", "bfloat16", 6, (None,)))
+
+
+def _recording_engine():
+    """``InferenceEngine`` that keeps, per request, the logits that picked
+    each generated token (``picks``: the prefill's, and each decode
+    step's from a copy taken inside the step, inside the graph on the
+    card), on the host, for ``_compare_tokens`` and ``_logit_diff``."""
+    import torch
+    from repro_torch.engine.engine import InferenceEngine
+
+    class Recording(InferenceEngine):
+        def __init__(self, *a, **kw):
+            self.picks, self._rows, self._seen, self._first = {}, [], None, None
+            super().__init__(*a, **kw)
+
+        def _greedy(self, logits):
+            self._first = logits[0].to("cpu", copy=True)
+            return InferenceEngine._greedy(logits)
+
+        def _prefill_into_slot(self, slot, req):
+            super()._prefill_into_slot(slot, req)
+            self.picks[req.rid] = [self._first]
+
+        def _finish_staged(self, logits):
+            req = self._staging["req"]
+            super()._finish_staged(logits)
+            self.picks[req.rid] = [self._first]
+
+        def _step_logits(self):
+            logits = super()._step_logits()
+            if self._seen is None:
+                self._seen = torch.empty_like(logits)
+            self._seen.copy_(logits)
+            return logits
+
+        def _fill_inputs(self, active):
+            super()._fill_inputs(active)
+            self._rows = [(i, self.slots[i]) for i in active]
+
+        def step(self):
+            self._rows = []
+            n = super().step()
+            if self._rows:
+                seen = self._seen.to("cpu", copy=True)
+                for i, req in self._rows:
+                    self.picks[req.rid].append(seen[i])
+            return n
+    return Recording
+
+
+def _logit_diff(a_tokens, a_logits, b_tokens, b_logits, top: int = 20):
+    """The two paths' logit difference on the histories they share: per
+    row, at every pick before the rows' first differing token, the
+    largest difference at ``b``'s ``top`` logits in bf16 spacings of its
+    top logit.  Returns {"max", "mean", "picks"}."""
+    diffs = []
+    for ta, la, tb, lb in zip(a_tokens, a_logits, b_tokens, b_logits):
+        for t in range(min(len(ta), len(tb))):
+            ref = lb[t].float()
+            idx = ref.topk(top).indices
+            spacing = _top2_rows(ref[None])[0][1]
+            diffs.append(float((la[t].float()[idx] - ref[idx]).abs().max())
+                         / spacing)
+            if ta[t] != tb[t]:
+                break
+    return {"max": max(diffs), "mean": sum(diffs) / len(diffs),
+            "picks": len(diffs)}
+
+
+def _ring_reference(model, requests, chunk, max_batch: int,
+                    max_len: int) -> list:
+    """Per request (an engine's finished ``EngineRequest``), the logits
+    that pick each of its generated tokens on the unsharded ring path:
+    plain tensors, ``NULL_CTX``, eager, fed the request's own tokens.  Its
+    prompt is admitted as the engine under a mesh admits one (``prefill``
+    and ``to_ring_cache``, or ``prefill_chunk`` in chunks of ``chunk`` into
+    one staging cache and ``ring_convert_cache``) and spliced into a slot
+    of one ring cache of ``max_batch`` x ``max_len`` (``splice_ring``);
+    then ``ring_decode_step`` runs every slot at [max_batch, 1], 0 in a
+    free row, ``max_batch`` requests at a time.  The arithmetic of the
+    engine's step on the 1 x 1 mesh, through the code paths of plain
+    tensors (``splice_ring``'s and the ring write's)."""
+    import torch
+    from repro_torch.models.model import (init_cache, prefill, prefill_chunk,
+                                          ring_convert_cache,
+                                          ring_decode_step, splice_ring,
+                                          to_ring_cache)
+    cfg, dev = model.cfg, model.device
+    ring = init_cache(cfg, max_batch, max_len, dtype=model.dtype, device=dev,
+                      ring=True)
+    stage = (init_cache(cfg, 1, max_len, dtype=model.dtype, device=dev)
+             if chunk else None)
+    out = []
+    with torch.no_grad():
+        for g in range(0, len(requests), max_batch):
+            group = requests[g:g + max_batch]
+            for slot, r in enumerate(group):
+                prompt = torch.tensor(r.tokens[:r.prompt_len],
+                                      dtype=torch.long, device=dev)[None]
+                if chunk is None:
+                    logits, states = prefill(model, prompt)
+                    one = to_ring_cache(cfg, states, max_len, r.prompt_len)
+                else:
+                    stage["pos"] = 0
+                    for s in range(0, r.prompt_len, chunk):
+                        logits, _ = prefill_chunk(model, stage,
+                                                  prompt[:, s:s + chunk])
+                    one = ring_convert_cache(cfg, stage, max_len,
+                                             r.prompt_len)
+                splice_ring(ring, one, slot)
+                out.append([logits[0].to("cpu", copy=True)])
+            for t in range(max(len(r.generated) for r in group) - 1):
+                tok = torch.zeros(max_batch, 1, dtype=torch.long)
+                pos = torch.zeros(max_batch, dtype=torch.int32)
+                live = [i for i, r in enumerate(group)
+                        if t + 1 < len(r.generated)]
+                for i in live:
+                    tok[i, 0] = group[i].generated[t]
+                    pos[i] = group[i].prompt_len + t
+                logits, _ = ring_decode_step(
+                    model, tok.to(dev),
+                    {"layers": ring["layers"], "pos": pos.to(dev)})
+                logits = logits.to("cpu")
+                for i in live:
+                    out[g + i].append(logits[i].clone())
+    return out
+
+
+def _held_pick_by_pick(tokens, top2, ref_logits) -> dict:
+    """Each generated token (``tokens[b][t]``, picked by logits of top-2
+    gap and bf16 spacing ``top2[b][t]``) against the reference's logits on
+    the same history (``ref_logits[b][t]``, which was fed these tokens):
+    a different pick must be a near tie on both sides, as in
+    ``_compare_tokens``; the histories stay shared, so every pick is
+    compared."""
+    import torch
+    flips, bad, compared = [], [], 0
+    for b, (row, row_top2, ref) in enumerate(zip(tokens, top2, ref_logits)):
+        ref = torch.stack(ref)
+        picks, ref_top2 = ref.float().argmax(-1).tolist(), _top2_rows(ref)
+        for t, (a, r) in enumerate(zip(row, picks)):
+            compared += 1
+            if a == r:
+                continue
+            (g_a, u_a), (g_r, u_r) = row_top2[t], ref_top2[t]
+            tie = g_a <= NEAR_TIE_ULPS * u_a and g_r <= NEAR_TIE_ULPS * u_r
+            (flips if tie else bad).append(
+                {"row": b, "step": t, "top2_gap": g_a,
+                 "top2_gap_reference": g_r, "bf16_spacing": max(u_a, u_r)})
+    return {"picks_compared": compared, "near_tie_flips": flips,
+            "mismatches": bad}
+
+
+def _replay_profile(replay, n: int = 3) -> list:
+    """[(device ms per replay, launches per replay, kernel name up to 160
+    characters)] of ``n`` replays of a captured step, from a
+    ``torch.profiler`` trace, the busiest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            replay()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.device_time_total / n / 1e3, e.count // n, e.key[:160])
+            for e in prof.key_averages() if e.device_type == cuda]
+    return sorted(rows, reverse=True)
+
+
+def _admission_trace(eng, prompt) -> dict:
+    """One one-shot admission of ``prompt`` into free slots of ``eng``
+    (every request done): its wall time untraced, then the device time and
+    number of its kernels from a ``torch.profiler`` trace of a second one;
+    what the card does not cover of the wall time is the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine.engine import EngineRequest
+
+    def admit(slot):
+        eng._prefill_into_slot(slot, EngineRequest(
+            rid=-1, tokens=list(prompt), prompt_len=len(prompt),
+            max_new_tokens=1))
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    admit(0)
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        admit(1)
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = [e for e in prof.key_averages() if e.device_type == cuda]
+    return {"prompt_tokens": len(prompt), "wall_ms": wall * 1e3,
+            "device_busy_ms": sum(e.device_time_total for e in ev) / 1e3,
+            "kernels": sum(e.count for e in ev)}
+
+
+def _capture_collectives(fn) -> tuple:
+    """(what ``fn`` returned, the functional all-reduces it issued): the
+    MoE ``local_map`` branch's NCCL all-reduces while an engine warms up
+    and captures its step, counted where ``layers._AllReduce`` calls
+    ``funcol.all_reduce``."""
+    import torch.distributed._functional_collectives as funcol
+    calls = []
+    real = funcol.all_reduce
+    funcol.all_reduce = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    try:
+        return fn(), len(calls)
+    finally:
+        funcol.all_reduce = real
+
+
+def engine_under_mesh(arch: str, dtype_name: str, n_req: int, chunks, ctx,
+                      card: str, eager: dict) -> dict:
+    """(c) ``arch`` at full width in ``dtype_name`` (seed 0) through
+    ``InferenceEngine(..., ctx=)`` on the 1 x 1 mesh: the weights placed
+    once (``placed_copy``; the memory it adds is reported), the ring
+    cache, prefill and the chunk step under ``local_map``, every decode
+    step a replay of the ring decode captured in the engine's CUDA graph;
+    beside it the unsharded engine (B1 over pages) on the same weights and
+    requests, one engine at a time, for each admission in ``chunks``.
+    ``n_req`` requests of 128-2048 prompt and 32 new tokens; every one
+    must finish, the launches be exact (B2 once per attention layer per
+    prefill call, B3 once per mamba layer per prefill, B1 none under the
+    mesh and once per attention layer per step without), every decode
+    step a replay.  The mesh engine's tokens are held pick by pick to the
+    unsharded ring path fed the same tokens (``_ring_reference``,
+    ``_held_pick_by_pick``: a different pick only at a near tie, the
+    logits at most ``NEAR_TIE_ULPS`` bf16 spacings apart); against the
+    unsharded engine's (``_compare_tokens``) a difference must be a near
+    tie or the ring path's own, which the control shows: the ring path
+    fed the unsharded engine's tokens picks the mesh's token there, its
+    logits at most ``CONTROL_SPACINGS`` from the unsharded engine's.  With
+    MoE layers the capture must issue the ``local_map``
+    branch's all-reduces (``_capture_collectives``) and a replay run
+    NCCL's kernel; each mesh run reports one replay's device time by
+    kernel (``_replay_profile``).  ``eager``: (b)'s eager ring decode
+    step, put beside the TPOT.  Returns each path's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import NULL_CTX
+    from repro_torch.engine.engine import WARMUP_STEPS
+    from repro_torch.launch import serve
+    from repro_torch.launch import sharded as SH
+    from repro_torch.models.model import init_params
+    recording = _recording_engine()
+    cfg = get_config(arch)
+    size = serve.SIZES["full"]
+    n = layer_counts(cfg)
+    max_new = 32
+    _free_card()
+    model = init_params(cfg, seed=0, dtype=getattr(torch, dtype_name),
+                        device="cuda")
+    mem0 = torch.cuda.memory_allocated()
+    placed = SH.placed_copy(model, ctx)
+    placed_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    by_path = {}
+    for chunk in chunks:
+        runs, out = {}, {}
+        admission = "one-shot" if chunk is None else f"chunks of {chunk}"
+        for name, c in (("unsharded", NULL_CTX), ("mesh", ctx)):
+            _free_card()
+            t0 = time.perf_counter()
+
+            def build(c=c):
+                return recording(
+                    cfg, placed if c.enabled else model,
+                    max_batch=size["max_batch"], max_len=size["max_len"],
+                    page_size=size["page_size"], prefill_chunk=chunk, ctx=c,
+                    device="cuda")
+            if c.enabled and cfg.moe is not None:
+                eng, all_reduces = _capture_collectives(build)
+            else:
+                eng, all_reduces = build(), 0
+            build_s = time.perf_counter() - t0
+            requests = serve.make_requests(cfg, n_req, max_new, "full",
+                                           seed=0)
+            _zero_counts()
+            report = serve.serve([eng], requests)
+            launches = _path_counts()
+            events = report["events"][0]
+            prefills = [dt for kind, _, dt in events if kind == "prefill"]
+            steps = [dt for kind, _, dt in events if kind == "decode"]
+            calls = sum(1 if chunk is None else math.ceil(r.prompt_len / chunk)
+                        for r in eng.completed)
+            attn = n["kv"] + n["win"]
+            want = {"flash_attention": attn * calls, "ssd": n["ssm"] * calls,
+                    "paged_attention": 0 if c.enabled else attn * len(steps)}
+            runs[name] = {
+                "finished": len(eng.completed), "prefill_calls": calls,
+                "decode_steps": len(steps), "graph_replays": eng.graph_replays,
+                "capture_s": eng.capture_s, "build_s": build_s,
+                "all_reduces_in_warmup_and_capture": all_reduces,
+                "launches": launches, "launches_wanted": want,
+                "median_ttft_s": statistics.median(prefills),
+                "median_tpot_s": statistics.median(steps),
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "ok": (len(eng.completed) == n_req
+                       and all(len(r.generated) == max_new
+                               for r in eng.completed)
+                       and launches == want
+                       and eng.graph_replays == len(steps) > 0)}
+            if c.enabled:
+                prof = _replay_profile(eng._graph.replay)
+                runs[name]["replay_busy_ms"] = sum(r[0] for r in prof)
+                runs[name]["replay_top_kernels"] = prof[:8]
+                # at world size 1 NCCL runs an average as its one-rank
+                # kernel (``onerank.cu``) and a sum as a copy
+                runs[name]["replay_nccl_kernels"] = [
+                    r for r in prof if "onerank" in r[2] or "nccl" in r[2]]
+            if chunk is None:
+                mid = sorted(eng.completed, key=lambda r: r.prompt_len)[
+                    len(eng.completed) // 2]
+                runs[name]["admission_trace"] = _admission_trace(
+                    eng, mid.tokens[:mid.prompt_len])
+            out[name] = ({r.rid: r for r in eng.completed}, eng.picks)
+            by_path[f"{arch} {dtype_name} {name} engine (7c), "
+                    f"{admission}"] = launches
+            del eng
+        rids = sorted(out["mesh"][0])
+        reqs = {k: [o[0][r] for r in rids] for k, o in out.items()}
+        tokens = {k: [r.generated for r in v] for k, v in reqs.items()}
+        logits = {k: [o[1][r] for r in rids] for k, o in out.items()}
+        top2 = {k: [_top2_rows(torch.stack(row)) for row in v]
+                for k, v in logits.items()}
+        cmp = _compare_tokens(tokens["mesh"], top2["mesh"],
+                              tokens["unsharded"], top2["unsharded"])
+        # the unsharded ring path fed each engine's own tokens: the mesh
+        # engine is held to it pick by pick, and the paged engine read
+        # against it (the control: B1 against the ring's ``_sdpa``, no mesh)
+        _free_card()
+        ref = {k: _ring_reference(model, v, chunk, size["max_batch"],
+                                  size["max_len"]) for k, v in reqs.items()}
+        held = _held_pick_by_pick(tokens["mesh"], top2["mesh"], ref["mesh"])
+        control = _held_pick_by_pick(tokens["unsharded"], top2["unsharded"],
+                                     ref["unsharded"])
+        diffs = {"mesh_vs_unsharded": _logit_diff(
+                     tokens["mesh"], logits["mesh"], tokens["unsharded"],
+                     logits["unsharded"]),
+                 "mesh_vs_ring_reference": _logit_diff(
+                     tokens["mesh"], logits["mesh"], tokens["mesh"],
+                     ref["mesh"]),
+                 "unsharded_vs_ring_reference": _logit_diff(
+                     tokens["unsharded"], logits["unsharded"],
+                     tokens["unsharded"], ref["unsharded"])}
+        # a pick of the mesh's that differs from the paged engine's outside
+        # a near tie is on the history both shared up to it, so the ring
+        # path fed the paged engine's tokens must pick it too: the
+        # difference is then the ring path's own, not the mesh's
+        unexplained = [
+            m for m in cmp["mismatches"]
+            if int(ref["unsharded"][m["row"]][m["step"]].float().argmax())
+            != tokens["mesh"][m["row"]][m["step"]]]
+        del out, logits, ref
+        # per MoE layer and step: the expert and shared-expert sums over the
+        # model axis and aux's mean over the data axis
+        n_moe = sum(b.ffn == "moe" for b in cfg.layer_list())
+        want_ar = n_moe * 3 * (WARMUP_STEPS + 1)
+        res = {"phase": "engine_under_mesh", "config": cfg.name,
+               "dtype": dtype_name,
+               "mesh": dict(zip(ctx.mesh.mesh_dim_names,
+                                ctx.mesh.mesh.shape)),
+               "backend": torch.distributed.get_backend(),
+               "admission": admission, "requests": n_req,
+               "max_new_tokens": max_new, "max_batch": size["max_batch"],
+               "max_len": size["max_len"], "placed_copy_gb": placed_gb,
+               **eager, "near_tie_ulps": NEAR_TIE_ULPS,
+               "against_ring_reference": held,
+               "against_unsharded_engine": {
+                   **cmp, "mismatches_not_the_ring_paths": unexplained},
+               "control_unsharded_against_ring_reference": control,
+               "logit_diff_spacings": diffs,
+               "all_reduces_wanted": want_ar, "runs": runs,
+               "nvidia_smi": card}
+        emit(res)
+        if not (all(r["ok"] for r in runs.values())
+                and not held["mismatches"]
+                and diffs["mesh_vs_ring_reference"]["max"] <= NEAR_TIE_ULPS
+                and diffs["unsharded_vs_ring_reference"]["max"]
+                <= CONTROL_SPACINGS
+                and not unexplained
+                and runs["mesh"]["all_reduces_in_warmup_and_capture"]
+                == want_ar
+                and bool(runs["mesh"]["replay_nccl_kernels"]) == bool(n_moe)):
+            raise AssertionError(f"engine under the mesh failed: {res}")
+    del model, placed
+    _free_card()
+    return by_path
+
+
 def sharded_phase(card: str) -> dict:
     """(b) The sharded path on the card: a 1 x 1 (data, model) mesh over
     NCCL at world size 1 (one card holds one NCCL rank), each run held to
-    the unsharded function on the same card.  Returns each path's
-    launches."""
+    the unsharded function on the same card; then (c) the engine under the
+    same mesh (``MESH_ENGINES``).  Returns each path's launches."""
     import torch.distributed as dist
     from repro_torch.launch import sharded as SH
     SH.start_world(device="cuda")
@@ -2284,12 +2724,17 @@ def sharded_phase(card: str) -> dict:
     res = {"phase": "sharded_ring_decode", "config": model.cfg.name,
            "steps": SHARD_STEPS, "batch": SHARD_B, "wall_s": wall,
            "launches": counts, "near_tie_ulps": NEAR_TIE_ULPS,
-           **_compare_tokens(ring, ring_logits, paged, paged_logits),
+           **_compare_tokens(ring.tolist(), _by_row(ring_logits),
+                             paged.tolist(), _by_row(paged_logits)),
            "nvidia_smi": card}
     emit(res)
     if res["mismatches"] or any(counts.values()):
         raise AssertionError(f"ring decode disagrees with B1's: {res}")
     by_path["llama3.1-8b sharded ring decode"] = counts
+    # (c) puts its TPOT beside this eager step, whose ring is shorter
+    eager = {"eager_ring_step_s": wall / SHARD_STEPS,
+             "eager_ring_rows": SHARD_L + SHARD_STEPS,
+             "eager_ring_batch": SHARD_B}
     del model, logits, states, paged_logits, ring_logits
     # mamba2-1.3b: B3 once per layer
     by_path["mamba2-1.3b sharded prefill"] = _sharded_prefill(
@@ -2299,6 +2744,9 @@ def sharded_phase(card: str) -> dict:
     by_path["deepseek-v2-lite-16b sharded prefill"] = _sharded_prefill(
         "deepseek-v2-lite-16b", ctx, card, none)[3]
     by_path["minicpm-2b sharded train step"] = _sharded_train(ctx, card)
+    for arch, dtype_name, n_req, chunks in MESH_ENGINES:
+        by_path.update(engine_under_mesh(arch, dtype_name, n_req, chunks,
+                                         ctx, card, eager))
     dist.destroy_process_group()
     _free_card()
     return by_path

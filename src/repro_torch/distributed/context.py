@@ -141,6 +141,19 @@ def contiguous_grads(*ts):
                  for t in ts)
 
 
+def local_rows(mesh, placements, n: int) -> Tuple[int, int]:
+    """(first, count) of the rows of dim 0 (of ``n``) that this rank's
+    shard holds under ``placements`` over ``mesh``: the mesh dims that
+    shard dim 0 split it in mesh order, the outer first, as
+    ``sharding.placements`` lays them out (evenly)."""
+    coord = mesh.get_coordinate()
+    idx, parts = 0, 1
+    for i, pl in enumerate(placements):
+        if pl.is_shard(0):
+            idx, parts = idx * mesh.size(i) + coord[i], parts * mesh.size(i)
+    return idx * (n // parts), n // parts
+
+
 def _is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)

@@ -20,15 +20,21 @@ The port keeps a layer's parameters apart (``Model.named_parameters``), so
 reference's spec without the leading ``None`` of the stage's repeat axis.
 ``placements`` turns a spec into DTensor placements over a ``DeviceMesh``
 and ``distribute`` places tensors by their specs (the counterpart of
-``as_named`` and ``sds_with_sharding``).  A mesh here is a ``DeviceMesh``
+``as_named`` and ``sds_with_sharding``); ``place_model``, ``placed_copy``,
+``place_batch``, ``place_cache`` and ``place_staging`` place a model, a
+batch and the caches under a ``ShardCtx`` and ``full`` reads a DTensor
+back whole.  A mesh here is a ``DeviceMesh``
 with ``mesh_dim_names``, or, for the pure spec functions, anything with a
 ``shape`` dict of axis sizes.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
 from repro_torch.configs.base import ModelConfig
+
+if TYPE_CHECKING:
+    from repro_torch.distributed.context import ShardCtx
 
 # (model_dim, fsdp_dim) per leaf name; dims are for the *unstacked* param.
 # model_dim/fsdp_dim of None means "never shard that way".
@@ -253,3 +259,76 @@ def shard_model(model, mesh, specs: Dict[str, tuple]):
             distribute_tensor(p.data, mesh, placements(specs[name], mesh)),
             requires_grad=p.requires_grad)
     return model
+
+
+# ---------------------------------------------------------------------------
+# Placing a model, a batch and caches under a ShardCtx
+# ---------------------------------------------------------------------------
+
+def place_model(model, ctx: ShardCtx, *, fsdp: bool = True):
+    """The model's parameters as DTensors placed by their specs, in place;
+    returns (model, specs)."""
+    specs = make_param_specs(model, ctx.mesh, fsdp=fsdp)
+    return shard_model(model, ctx.mesh, specs), specs
+
+
+def placed_copy(model, ctx: ShardCtx):
+    """A model over new parameter dicts holding ``model``'s tensors,
+    placed by their specs without FSDP (``place_model``): the engine
+    serves tensor-parallel, the weights whole over the data axes, whose
+    ranks each decode their own rows; ``model`` itself stays as it is.  Where a
+    placement keeps a rank's shard whole (every axis of size 1) the shard
+    is the original tensor, not a copy."""
+    from repro_torch.models.layers import frozen
+    from repro_torch.models.model import Block, Model
+
+    def parts(d):
+        return None if d is None else frozen({k: v.data
+                                              for k, v in d.items()})
+    copy = Model(model.cfg, parts(model.top),
+                 [Block(b.spec, parts(b.attn), parts(b.ffn), parts(b.mixer))
+                  for b in model.layers])
+    return place_model(copy, ctx, fsdp=False)[0]
+
+
+def place_batch(t, ctx: ShardCtx):
+    """A batch-leading tensor, its batch over the data axes."""
+    spec = input_sharding(ctx.mesh, t.shape[0], ctx.data_axes, t.dim() - 1)
+    return distribute(t, spec, ctx.mesh)
+
+
+def place_cache(cache: dict, cfg: ModelConfig, ctx: ShardCtx,
+                max_len: int) -> dict:
+    """A ring cache (``init_cache(..., ring=True)`` layout; plain tensors or
+    DTensors) placed by ``make_cache_specs``."""
+    from torch.distributed.tensor import DTensor
+    specs = make_cache_specs(cfg, cache["pos"].shape[0], max_len, ctx.mesh,
+                             data_axes=ctx.data_axes)
+
+    def place(t, spec):
+        if isinstance(t, DTensor):
+            return t.redistribute(ctx.mesh, placements(spec, ctx.mesh))
+        return distribute(t, spec, ctx.mesh)
+    return _map_tree(place, cache, specs)
+
+
+def place_staging(cache: dict, cfg: ModelConfig, ctx: ShardCtx) -> dict:
+    """A staging cache (``init_cache(..., ring=False)``: k/v [layers, B,
+    max_len, KV, hd]) placed as the chunk step writes it under ``ctx``
+    (``layers._chunk_sharded``): the batch over the data axes, the KV
+    heads over the model axis where they and the query heads divide it
+    (``layers.head_axes``), else whole on every rank; ``pos`` stays a
+    number."""
+    from repro_torch.models.layers import head_axes
+    b = ctx.batch_spec_entry(cache["k"].shape[1])
+    spec = (None, b, None, head_axes(cfg.num_heads, cfg.num_kv_heads, ctx)[1],
+            None)
+    return {"k": distribute(cache["k"], spec, ctx.mesh),
+            "v": distribute(cache["v"], spec, ctx.mesh),
+            "pos": cache["pos"]}
+
+
+def full(t):
+    """A DTensor gathered whole on every rank; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t

@@ -42,7 +42,19 @@ events deque.  Deliberate differences:
   after ``checkpoint_request`` resumes with its generated tokens in the
   cache;
 * non-finite logits of a request raise ``FloatingPointError`` instead of
-  being served.
+  being served;
+* under an enabled ``ctx`` (``ShardCtx`` over a ``DeviceMesh``) the engine
+  holds the reference's dense ring cache (``init_cache(..., ring=True)``
+  placed by ``distributed.sharding.place_cache``) and nothing paged: it
+  places a copy of the weights (``placed_copy``; the caller's model stays
+  as it is), admits a prompt through ``prefill(ctx=)`` and
+  ``to_ring_cache`` or, chunked, ``prefill_chunk(ctx=)`` into one placed
+  staging cache and ``ring_convert_cache``, copies it into its slot
+  (``splice_ring``, the reference's ``_splice``) and decodes every slot
+  through ``ring_decode_step(ctx=)`` at the ring's ``pos``, a view of the
+  host buffer's positions (each row's tokens less one, 0 in a free row),
+  captured and replayed on the card as the paged step is.  The mesh must
+  be on the engine's device.
 
 The kernel wrappers count launches in Python, which a graph replay does
 not run: the counts made while warming up and capturing are taken back, and
@@ -59,6 +71,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed.context import (NULL_CTX, ShardCtx, _is_dtensor,
+                                            local_rows)
+from repro_torch.distributed import sharding as shd
 from repro_torch.engine.kv_cache import PagedKVCache
 from repro_torch.engine.latent_cache import LatentCache
 from repro_torch.engine.state_cache import SSMStateCache
@@ -68,7 +83,9 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.model import (Model, decode_step, init_cache,
                                       init_params, layer_caches, prefill,
-                                      prefill_chunk)
+                                      prefill_chunk, ring_convert_cache,
+                                      ring_decode_step, splice_ring,
+                                      to_ring_cache)
 
 KERNELS = (paged_attention, flash_attention, ssd)   # their ``launches``
 WARMUP_STEPS = 2        # eager decode steps on a side stream before capture
@@ -92,26 +109,39 @@ class InferenceEngine:
     """Continuous-batching engine: ``max_batch`` slots over one paged KV
     cache (full attention layers), one per-slot ring cache (window
     layers), one per-slot latent cache (MLA layers) and one per-slot state
-    cache (mamba layers)."""
+    cache (mamba layers); under a mesh (``ctx``), over the reference's
+    ring cache alone."""
 
     def __init__(self, cfg: ModelConfig, params: Optional[Model] = None, *,
-                 max_batch: int = 8, max_len: int = 256, seed: int = 0,
+                 max_batch: int = 8, max_len: int = 256,
+                 ctx: ShardCtx = NULL_CTX, seed: int = 0,
                  prefill_chunk: Optional[int] = None, max_events: int = 4096,
                  dtype=torch.float32, page_size: int = 16,
                  num_pages: Optional[int] = None, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.ctx = ctx
         self.max_batch = max_batch
         self.max_len = max_len
+        if ctx.enabled and ctx.mesh.device_type != self.device.type:
+            raise ValueError(f"mesh on {ctx.mesh.device_type}, engine on "
+                             f"{self.device}")
         if params is None:
             params = init_params(cfg, seed=seed, dtype=dtype,
                                  device=self.device)
         elif params.device.type != self.device.type:
             raise ValueError(f"weights on {params.device}, engine on "
                              f"{self.device}")
+        if ctx.enabled and not _is_dtensor(params.top["embed"]):
+            params = shd.placed_copy(params, ctx)
         self.params = params
         self._layer_caches = layer_caches(cfg)
         kinds = {kind for kind, _ in self._layer_caches}
+        if ctx.enabled:         # the reference's ring, nothing paged
+            kinds = set()
+            self.ring = shd.place_cache(
+                init_cache(cfg, max_batch, max_len, dtype=params.dtype,
+                           device=self.device, ring=True), cfg, ctx, max_len)
         if num_pages is None:
             num_pages = max_batch * -(-max_len // page_size)
         self.cache = (PagedKVCache(cfg, num_pages, page_size,
@@ -137,6 +167,8 @@ class InferenceEngine:
         self._stage_cache = (init_cache(cfg, 1, max_len, dtype=params.dtype,
                                         device=self.device)
                              if self.prefill_chunk else None)
+        if ctx.enabled and self._stage_cache is not None:
+            self._stage_cache = shd.place_staging(self._stage_cache, cfg, ctx)
         self._staging: Optional[dict] = None
         self.events: Deque[tuple] = deque(maxlen=max_events)
         self.completed: List[EngineRequest] = []
@@ -151,13 +183,16 @@ class InferenceEngine:
 
     def _init_decode_inputs(self):
         """One packed int32 buffer on the host (pinned on the card) and its
-        device copy: tokens [B], then with attention or MLA layers context
-        lengths [B], then with full attention layers block tables [B, W];
-        the step's cache view reads the device copy."""
+        device copy: tokens [B], then with attention or MLA layers (or a
+        mesh) context lengths [B], then with full attention layers block
+        tables [B, W]; the step's cache view reads the device copy.  Under
+        a mesh the step reads DTensor views of it, made here once: tokens
+        [B, 1] with the batch over the data axes and positions [B]
+        replicated, as ``place_batch`` and ``place_cache`` place them."""
         B = self.max_batch
         n = B
         if (self.cache is not None or self.window is not None
-                or self.latent is not None):
+                or self.latent is not None or self.ctx.enabled):
             n += B
         if self.cache is not None:
             table, _ = self.cache.table_view()
@@ -178,7 +213,26 @@ class InferenceEngine:
             self._view.update(self.latent.decode_view())
         if self.states is not None:
             self._view.update(self.states.decode_view())
+        if self.ctx.enabled:
+            self._ring_inputs()
         self._fill_inputs([])
+
+    def _ring_inputs(self):
+        """DTensor views of the device buffer, made once: the step's tokens
+        [B, 1], the batch over the data axes, and the ring's ``pos`` [B],
+        replicated, which so is the buffer's positions (``splice_ring``
+        writes a slot's there, ``_fill_inputs`` every step's)."""
+        from torch.distributed.tensor import DTensor
+        B, mesh = self.max_batch, self.ctx.mesh
+        tok = self._dev[:B].view(B, 1)
+        tok_pl = shd.placements(
+            shd.input_sharding(mesh, B, self.ctx.data_axes), mesh)
+        first, n = local_rows(mesh, tok_pl, B)
+        self._tokens_dt = DTensor.from_local(tok[first:first + n], mesh,
+                                             tok_pl, run_check=False)
+        self.ring["pos"] = DTensor.from_local(
+            self._dev[B:2 * B], mesh, shd.placements((None,), mesh),
+            run_check=False)
 
     def _fill_inputs(self, active: List[int]):
         """Write the step's tokens (0 in free rows), context lengths (the
@@ -204,13 +258,30 @@ class InferenceEngine:
             for i in active:
                 h[B + i] = len(self.slots[i].tokens)
             n = 2 * B
+        elif self.ctx.enabled:       # each row's position, 0 in a free row
+            h[B:2 * B] = 0
+            for i in active:
+                h[B + i] = len(self.slots[i].tokens) - 1
+            n = 2 * B
         self._dev[:n].copy_(self._host[:n], non_blocking=True)
+
+    def _step_logits(self) -> torch.Tensor:
+        """The step's logits [B, V] over every slot: the paged
+        ``decode_step``, or under a mesh ``ring_decode_step`` over the
+        placed ring at its ``pos``, the buffer's positions (the step's
+        rebinding of ``pos`` lands in a copy of the dict), gathered
+        whole."""
+        if not self.ctx.enabled:
+            return decode_step(self.params, self._dev[:self.max_batch],
+                               self._view)
+        logits, _ = ring_decode_step(self.params, self._tokens_dt,
+                                     dict(self.ring), self.ctx)
+        return shd.full(logits)
 
     def _decode_body(self) -> torch.Tensor:
         """The step over every slot: [2, B] int32, each row's greedy token
         and whether its logits are all finite."""
-        logits = decode_step(self.params, self._dev[:self.max_batch],
-                             self._view)
+        logits = self._step_logits()
         return torch.stack([logits.argmax(dim=-1).int(),
                             torch.isfinite(logits).all(dim=-1).int()])
 
@@ -327,6 +398,16 @@ class InferenceEngine:
                                     self._clock() - t0))
 
     def _prefill_into_slot(self, slot: int, req: EngineRequest):
+        if self.ctx.enabled:
+            logits, states = prefill(
+                self.params, shd.place_batch(self._tokens(req.tokens)[None],
+                                            self.ctx), ctx=self.ctx)
+            splice_ring(self.ring, to_ring_cache(self.cfg, states,
+                                                 self.max_len,
+                                                 len(req.tokens)), slot)
+            req.tokens.append(self._greedy(shd.full(logits))[0])
+            self.slots[slot] = req
+            return
         logits, states = prefill(self.params, self._tokens(req.tokens)[None])
         kv = [(a[0], b[0]) for (kind, _), (a, b)
               in zip(self._layer_caches, states) if kind == "kv"]
@@ -362,12 +443,19 @@ class InferenceEngine:
         req, done = st["req"], sc["pos"]
         n_total = len(req.tokens)
         n = min(self.prefill_chunk, n_total - done)
-        logits, _ = prefill_chunk(self.params, sc,
-                                  self._tokens(req.tokens[done:done + n])[None])
+        chunk = self._tokens(req.tokens[done:done + n])[None]
+        if self.ctx.enabled:
+            chunk = shd.place_batch(chunk, self.ctx)
+        logits, _ = prefill_chunk(self.params, sc, chunk, self.ctx)
         if sc["pos"] < n_total:
             return
-        # prompt complete: copy the staged rows into pages and rings, emit
-        # a token
+        # prompt complete: copy the staged rows into pages and rings (under
+        # a mesh: into the slot's row of the ring cache), emit a token
+        if self.ctx.enabled:
+            splice_ring(self.ring, ring_convert_cache(
+                self.cfg, sc, self.max_len, n_total), st["slot"])
+            self._finish_staged(shd.full(logits))
+            return
         rows = {"kv": [], "win": []}
         for i, (kind, _) in enumerate(self._layer_caches):
             rows[kind].append((sc["k"][i, 0, :n_total],
@@ -376,6 +464,11 @@ class InferenceEngine:
             self._to_pages(st["slot"], rows["kv"])
         if self.window is not None:
             self.window.write(st["slot"], rows["win"])
+        self._finish_staged(logits)
+
+    def _finish_staged(self, logits):
+        st = self._staging
+        req = st["req"]
         req.tokens.append(self._greedy(logits)[0])
         self.slots[st["slot"]] = req
         self.events.append(("prefill", req.prompt_len,

@@ -1,12 +1,14 @@
 """Helpers that run the model sharded over a real process group: start the
-world, build a (data, model) mesh on a device, place the model, a batch,
-a ring cache and AdamW's state on it by the sharding rules, and read a
-DTensor back whole.
+world and build a (data, model) mesh on a device.  The placement helpers
+(the model, a batch, a ring cache, a staging cache; a DTensor read back
+whole) live in ``distributed.sharding`` and are re-exported here.
 
 They take ``device="cuda"`` by default (NCCL) and raise without a card;
 ``device="cpu"`` runs them over gloo.  The steps themselves are the
 model's own (``prefill``, ``ring_decode_step``, ``make_train_step``) called
-with the ``ShardCtx`` that ``mesh_ctx`` returns.
+with the ``ShardCtx`` that ``mesh_ctx`` returns; ``InferenceEngine(...,
+ctx=)`` places its weights, ring cache and staging cache with the same
+helpers.
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import ShardCtx
+from repro_torch.distributed.sharding import (full, place_batch,  # noqa: F401
+                                              place_cache, place_model,
+                                              place_staging, placed_copy)
 
 
 def free_port() -> int:
@@ -49,37 +53,3 @@ def mesh_ctx(data: int = 1, model: int = 1, *, device="cuda") -> ShardCtx:
     from repro_torch.launch.specs import make_ctx
     dev = resolve_device(device)
     return make_ctx(make_local_mesh(data, model, device_type=dev.type))
-
-
-def place_model(model, ctx: ShardCtx, *, fsdp: bool = True):
-    """The model's parameters as DTensors placed by their specs, in place;
-    returns (model, specs)."""
-    specs = shd.make_param_specs(model, ctx.mesh, fsdp=fsdp)
-    return shd.shard_model(model, ctx.mesh, specs), specs
-
-
-def place_batch(t, ctx: ShardCtx):
-    """A batch-leading tensor, its batch over the data axes."""
-    spec = shd.input_sharding(ctx.mesh, t.shape[0], ctx.data_axes,
-                              t.dim() - 1)
-    return shd.distribute(t, spec, ctx.mesh)
-
-
-def place_cache(cache: dict, cfg, ctx: ShardCtx, max_len: int) -> dict:
-    """A ring cache (``init_cache(..., ring=True)`` layout; plain tensors or
-    DTensors) placed by ``make_cache_specs``."""
-    from torch.distributed.tensor import DTensor
-    specs = shd.make_cache_specs(cfg, cache["pos"].shape[0], max_len,
-                                 ctx.mesh, data_axes=ctx.data_axes)
-
-    def place(t, spec):
-        if isinstance(t, DTensor):
-            return t.redistribute(ctx.mesh, shd.placements(spec, ctx.mesh))
-        return shd.distribute(t, spec, ctx.mesh)
-    return shd._map_tree(place, cache, specs)
-
-
-def full(t):
-    """A DTensor gathered whole on every rank; any other tensor as it is."""
-    from torch.distributed.tensor import DTensor
-    return t.full_tensor() if isinstance(t, DTensor) else t

@@ -263,6 +263,14 @@ def local_heads(k, n_heads: int, n_local: int, rank: int):
     return k.repeat_interleave(G, dim=2)[:, :, first:first + n_local]
 
 
+def head_axes(H: int, KV: int, ctx: ShardCtx):
+    """(q's head entry, K/V's head entry) of attention under ``local_map``:
+    whole query heads over the model axis where they divide it, the KV
+    heads with them where they divide it too, else whole on every rank."""
+    q_ax = ctx.model_axis_if_divides(H)
+    return q_ax, ctx.model_axis_if_divides(KV) if q_ax else None
+
+
 def _attend_sharded(q, k, v, window, softcap, ctx: ShardCtx, train: bool):
     """Attention on each rank's shard, under ``local_map``: through
     ``flash_attention``, or with ``train`` the plain ``_sdpa_chunked``
@@ -275,10 +283,8 @@ def _attend_sharded(q, k, v, window, softcap, ctx: ShardCtx, train: bool):
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     B, _, H, _ = q.shape
-    KV = k.shape[2]
     bspec = ctx.batch_spec_entry(B)
-    q_ax = ctx.model_axis_if_divides(H)
-    kv_ax = ctx.model_axis_if_divides(KV) if q_ax else None
+    q_ax, kv_ax = head_axes(H, k.shape[2], ctx)
     qp = placements((bspec, None, q_ax, None), ctx.mesh)
     kp = placements((bspec, None, kv_ax, None), ctx.mesh)
     kp_grad = kp
@@ -358,16 +364,35 @@ def window_decode(p, cfg: ModelConfig, x, k_ring, v_ring, ring_tables,
 
 def write_rows(cache, new, rows):
     """Row ``rows[b]`` of cache[b] (cache [B, S, ...]) set to new[b], in
-    place: one indexed store, or on a DTensor cache the reference's masked
-    select (elementwise along a possibly sharded S)."""
+    place: one indexed store.  On a DTensor cache whose S is whole on every
+    rank, the same store into each rank's own batch rows (``_local_shards``);
+    on one whose S is sharded, the reference's masked select (elementwise
+    along S)."""
     B, S = cache.shape[:2]
     if _is_dtensor(cache):
-        hit = torch.arange(S, device=rows.device)[None, :] == rows[:, None]
-        hit = hit.reshape(B, S, *(1,) * (cache.dim() - 2))
-        cache.copy_(torch.where(hit, new[:, None], cache))
-        return
+        if any(pl.is_shard(1) for pl in cache.placements):
+            hit = torch.arange(S, device=rows.device)[None, :] == rows[:, None]
+            hit = hit.reshape(B, S, *(1,) * (cache.dim() - 2))
+            cache.copy_(torch.where(hit, new[:, None], cache))
+            return
+        cache, new, rows = _local_shards(cache, new, rows)
+        B = cache.shape[0]
     idx = torch.arange(B, device=cache.device) * S + rows
     cache.view(B * S, *cache.shape[2:])[idx] = new
+
+
+def _local_shards(cache, new, rows):
+    """This rank's shards of a DTensor cache [B, S, ...] (S whole), of the
+    new rows new [B, ...] placed as the cache's rows are and of the row
+    indices rows [B] split as its batch is: (local cache, new, rows)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pls = cache.device_mesh, cache.placements
+    new_pl = tuple(Shard(pl.dim - 1) if pl.is_shard() and pl.dim > 1 else pl
+                   for pl in pls)
+    rows_pl = tuple(pl if pl.is_shard(0) else Replicate() for pl in pls)
+    new = replicated_like(new, cache).redistribute(mesh, new_pl)
+    rows = replicated_like(rows, cache).redistribute(mesh, rows_pl)
+    return cache.to_local(), new.to_local(), rows.to_local()
 
 
 def ring_attn_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos,
@@ -421,16 +446,62 @@ def attn_chunk(p, cfg: ModelConfig, x, cache_k, cache_v, pos0: int,
     the C tokens of x [B, C, d] starting at ``pos0``; cache_k/v:
     [B, S, KV, hd] with S >= pos0 + C, written in place.  Flash attention
     sees K/V cut to ``pos0 + C`` rows, so its tail alignment
-    (q_offset = Lk - Lq) puts the chunk's queries at pos0..pos0+C-1."""
+    (q_offset = Lk - Lq) puts the chunk's queries at pos0..pos0+C-1.
+    Under a mesh both run on each rank's shard (``_chunk_sharded``)."""
     B, C, _ = x.shape
     h = block_input(x, p["ln"], cfg, ctx)
     positions = (pos0 + torch.arange(C, device=x.device))[None].expand(B, C)
     q, k_new, v_new = _qkv(p, cfg, h, positions, ctx)
-    cache_k[:, pos0:pos0 + C] = k_new
-    cache_v[:, pos0:pos0 + C] = v_new
-    y = flash_attention(q, cache_k[:, :pos0 + C], cache_v[:, :pos0 + C],
-                        causal=True, window=window, softcap=cfg.logit_softcap)
+    if ctx.enabled and _is_dtensor(q):
+        y = _chunk_sharded(q, k_new, v_new, cache_k, cache_v, pos0, window,
+                           cfg.logit_softcap, ctx)
+    else:
+        cache_k[:, pos0:pos0 + C] = k_new
+        cache_v[:, pos0:pos0 + C] = v_new
+        y = flash_attention(q, cache_k[:, :pos0 + C], cache_v[:, :pos0 + C],
+                            causal=True, window=window,
+                            softcap=cfg.logit_softcap)
     return y.reshape(B, C, -1) @ p["wo"]
+
+
+def _chunk_sharded(q, k_new, v_new, cache_k, cache_v, pos0: int, window,
+                   softcap, ctx: ShardCtx):
+    """``attn_chunk``'s write and flash call on each rank's shard, under
+    ``local_map``, as ``_attend_sharded`` splits prefill: the batch over
+    the data axes, whole heads over the model axis (``head_axes``), a rank
+    handing the kernel only the KV heads its query heads read.  The
+    staging layer cache_k/v [B, S, KV, hd] must already be placed so
+    (``distributed.sharding.place_staging``): each rank writes the chunk's rows
+    into its own shard in place.  Returns [B, C, H * hd]."""
+    from torch.distributed.tensor.experimental import local_map
+    B, C, H, _ = q.shape
+    bspec = ctx.batch_spec_entry(B)
+    q_ax, kv_ax = head_axes(H, k_new.shape[2], ctx)
+    kp = placements((bspec, None, kv_ax, None), ctx.mesh)
+    for c in (cache_k, cache_v):
+        if not _is_dtensor(c) or tuple(c.placements) != kp:
+            raise ValueError(
+                f"staging cache placed {getattr(c, 'placements', None)}, "
+                f"the chunk step writes {kp}: place it with "
+                f"distributed.sharding.place_staging")
+
+    def body(ql, kl, vl, ck, cv):
+        ck[:, pos0:pos0 + C] = kl
+        cv[:, pos0:pos0 + C] = vl
+        kc, vc = ck[:, :pos0 + C], cv[:, :pos0 + C]
+        if q_ax and not kv_ax:
+            r = ctx.mesh.get_local_rank(ctx.model_axis)
+            kc, vc = (local_heads(t, H, ql.shape[2], r).contiguous()
+                      for t in (kc, vc))
+        y = flash_attention(ql.contiguous(), kc, vc, causal=True,
+                            window=window, softcap=softcap)
+        return y.reshape(*y.shape[:2], -1)
+    return local_map(body, out_placements=(placements((bspec, None, q_ax),
+                                                      ctx.mesh),),
+                     in_placements=(placements((bspec, None, q_ax, None),
+                                               ctx.mesh), kp, kp, kp, kp),
+                     device_mesh=ctx.mesh, redistribute_inputs=True)(
+                         q, k_new, v_new, cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------

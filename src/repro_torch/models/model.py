@@ -6,7 +6,9 @@ Counterpart of ``repro/models/model.py``: ``_init_block`` (:28-42),
 ``logits_fn`` (:205-207), ``prefill`` (:210-226), ``init_cache``
 (:229-270), ``prefill_chunk`` (:273-344), ``ring_convert_cache`` (:347)
 and ``decode_step`` (:373-438, as ``ring_decode_step``; ``decode_step``
-here is the engine's paged step), with the blocks of ``_apply_block``
+here is the engine's paged step), and the engine's ``_splice``
+(``repro/engine/engine.py:136-145``, as ``splice_ring``), with the blocks
+of ``_apply_block``
 (:87-122) and their sharding constraints under a ``ShardCtx``.
 Differences:
 
@@ -31,8 +33,9 @@ Differences:
   gives the reference's per-layer ring layout, which ``ring_decode_step``
   reads and updates in place, and which ``to_ring_cache`` builds from
   ``prefill``'s states.  The ring layout has a batch dim to shard, which
-  the paged cache has not: the dry run's decode cells and the sharded
-  decode run it;
+  the paged cache has not: the dry run's decode cells and the engine
+  under a mesh run it (``splice_ring`` copies a prompt's ring into a
+  slot);
 * ``model_forward(..., train=True)`` is the reference's training forward
   (``_run_stages`` with ``remat``, :136-170): plain, differentiable
   attention and scan (``layers._sdpa_chunked``, ``ssd.ssd_chunked``), each
@@ -64,6 +67,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.context import (NULL_CTX, ShardCtx, _is_dtensor,
+                                            local_rows, replicated_like,
                                             sharded_scope)
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
@@ -459,6 +463,48 @@ def ring_convert_cache(cfg: ModelConfig, cache: dict, max_len: int,
                               device=cache["k"].device)}
 
 
+def _leaf_pairs(a, b):
+    """(leaf of a, leaf of b) over two trees of dicts of the same keys."""
+    if isinstance(a, dict):
+        for k in a:
+            yield from _leaf_pairs(a[k], b[k])
+    else:
+        yield a, b
+
+
+def _put_row(leaf, src, slot: int):
+    """leaf[slot] = src[0] in place (leaf [B, ...], src [1, ...]).  On a
+    DTensor leaf, src is first placed as leaf is with its batch whole, and
+    the rank whose shard holds row ``slot`` stores it into its local
+    tensor: no other row is touched."""
+    if not _is_dtensor(leaf):
+        leaf[slot] = src[0]
+        return
+    from torch.distributed.tensor import Replicate
+    src = replicated_like(src, leaf).redistribute(
+        leaf.device_mesh, tuple(Replicate() if pl.is_shard(0) else pl
+                                for pl in leaf.placements))
+    first, n = local_rows(leaf.device_mesh, leaf.placements, leaf.shape[0])
+    if first <= slot < first + n:
+        leaf.to_local()[slot - first] = src.to_local()[0]
+
+
+def splice_ring(cache: dict, one: dict, slot: int) -> dict:
+    """Copy the one-request ring cache ``one`` (``to_ring_cache`` or
+    ``ring_convert_cache`` of one prompt) into row ``slot`` of every leaf
+    of the ring cache ``cache`` (``init_cache(..., ring=True)``, placed or
+    not), ``pos[slot]`` included, in place: the reference's engine
+    ``_splice``.  Full, window, MLA and mamba leaves alike.  On DTensor
+    leaves whose batch is split over the data axes only the rank holding
+    the row writes it (``_put_row``).  Returns ``cache``."""
+    with torch.no_grad():
+        for layer, src in zip(cache["layers"], one["layers"]):
+            for leaf, s in _leaf_pairs(layer, src):
+                _put_row(leaf, s, slot)
+        _put_row(cache["pos"], one["pos"], slot)
+    return cache
+
+
 def ring_decode_step(model: Model, tokens, cache: dict,
                      ctx: ShardCtx = NULL_CTX):
     """One decode iteration over the ring cache (``init_cache(...,
@@ -495,7 +541,11 @@ def prefill_chunk(model: Model, cache: dict, tokens, ctx: ShardCtx = NULL_CTX):
     """Extend the staging cache by one prompt chunk ``tokens`` [B, C] (all
     real tokens).  Writes K/V at ``cache["pos"]`` onward in place, advances
     ``pos`` by C and returns (logits at the chunk's last token [B, V],
-    cache).  A MoE FFN routes the chunk's tokens alone, as in JAX."""
+    cache).  A MoE FFN routes the chunk's tokens alone, as in JAX.  Under
+    a mesh the staging cache must be placed by
+    ``distributed.sharding.place_staging``, and each layer writes and
+    attends on each rank's shard (``layers._chunk_sharded``, which raises
+    on a cache placed otherwise)."""
     cfg = model.cfg
     if any(blk.spec.mixer not in ("full", "window") for blk in model.layers):
         raise NotImplementedError(

@@ -14,7 +14,14 @@ unsharded and sharded from the same weights (seed 0):
 * 4 ``ring_decode_step`` logits over the ring cache built from the
   prefill's states (``to_ring_cache``), the same greedy tokens fed to both;
 * one fp32 ``make_train_step`` (``cast_half`` the identity; FSDP specs):
-  the loss and every updated leaf.
+  the loss and every updated leaf;
+* ``chunk`` (the configs of full and window layers only): 3 chunks of 8
+  of the 4 prompts through ``prefill_chunk(ctx=)`` into a staging cache
+  placed by ``place_staging``, each chunk's logits and the staging rows;
+* ``engine``: ``InferenceEngine(..., ctx=)`` (a placed copy of the
+  weights, the ring cache) serving 3 prompts over 2 slots, one-shot and,
+  where chunkable, in chunks of 8, against the unsharded engine's greedy
+  tokens on the same weights (1.0 where any token differs, else 0.0).
 
 The sharded MoE averages its aux loss over the data shards, as the
 reference's ``shard_map`` branch does, so the unsharded oracle of a MoE
@@ -35,7 +42,8 @@ ARCHS = ("llama3.1-8b", "gemma3-27b", "deepseek-v2-lite-16b", "mamba2-1.3b",
 MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2),)}
 B, L, MAX_LEN, STEPS = 4, 32, 48, 4
 TOL = 1e-5
-WHAT = ("prefill", "decode", "train_loss", "train_leaves")
+WHAT = ("prefill", "decode", "train_loss", "train_leaves", "chunk", "engine")
+CHUNK = 8
 
 
 def _max_diff(a, b) -> float:
@@ -77,6 +85,51 @@ def _config(arch):
     return reduce_config(get_config(arch))
 
 
+def _chunkable(cfg) -> bool:
+    return {b.mixer for b in cfg.layer_list()} <= {"full", "window"}
+
+
+def _check_chunks(cfg, base, model, toks, ctx) -> float:
+    """Worst gap of ``prefill_chunk(ctx=)``'s logits and staging rows from
+    the unsharded run's over 3 chunks of ``CHUNK``."""
+    from repro_torch.launch import sharded as SH
+    from repro_torch.models import model as M
+    n = 3 * CHUNK
+    ref = M.init_cache(cfg, B, n, dtype=torch.float32, device="cpu")
+    got = SH.place_staging(M.init_cache(cfg, B, n, dtype=torch.float32,
+                                        device="cpu"), cfg, ctx)
+    worst = 0.0
+    for s in range(0, n, CHUNK):
+        chunk = toks[:, s:s + CHUNK]
+        ref_l, ref = M.prefill_chunk(base, ref, chunk)
+        l, got = M.prefill_chunk(model, got, SH.place_batch(chunk, ctx), ctx)
+        worst = max(worst, _max_diff(l, ref_l))
+    return max(worst, _max_diff(got["k"], ref["k"]),
+               _max_diff(got["v"], ref["v"]))
+
+
+def _check_engine(cfg, base, toks, ctx) -> float:
+    """0.0 where the sharded engine's greedy tokens equal the unsharded
+    engine's, one-shot and (chunkable configs) in chunks, else 1.0."""
+    from repro_torch.engine.engine import EngineRequest, InferenceEngine
+    prompts = [toks[0, :11].tolist(), toks[1, :7].tolist(),
+               toks[2, :16].tolist()]
+    chunks = (None, CHUNK) if _chunkable(cfg) else (None,)
+    for chunk in chunks:
+        outs = []
+        for c in (None, ctx):
+            eng = InferenceEngine(cfg, base, max_batch=2, max_len=MAX_LEN,
+                                  prefill_chunk=chunk, device="cpu",
+                                  **({"ctx": c} if c else {}))
+            for rid, p in enumerate(prompts):
+                eng.submit(EngineRequest(rid=rid, tokens=list(p),
+                                         prompt_len=len(p), max_new_tokens=4))
+            outs.append({r.rid: r.generated for r in eng.run_until_drained()})
+        if outs[0] != outs[1] or len(outs[0]) != len(prompts):
+            return 1.0
+    return 0.0
+
+
 def _check_arch(arch, ctx, dp):
     import copy
     from unittest import mock
@@ -105,6 +158,9 @@ def _check_arch(arch, ctx, dp):
             worst = max(worst, _max_diff(got, ref_l))
             nxt = ref_l.argmax(-1)[:, None]
         out["decode"] = worst
+        if _chunkable(cfg):
+            out["chunk"] = _check_chunks(cfg, base, model, toks, ctx)
+        out["engine"] = _check_engine(cfg, base, toks, ctx)
     labels = torch.randint(0, cfg.vocab_size, (B, L), generator=g)
     mask = (torch.rand((B, L), generator=g) > 0.2).float()
     with mock.patch.object(TTS, "cast_half", lambda p, dtype=None: p):
@@ -158,7 +214,8 @@ def _results(world: int) -> dict:
 
 
 CASES = [(w, f"{d}x{m}", arch, what) for w, meshes in MESHES.items()
-         for d, m in meshes for arch in ARCHS for what in WHAT]
+         for d, m in meshes for arch in ARCHS for what in WHAT
+         if what != "chunk" or _chunkable(_config(arch))]
 
 
 @pytest.mark.parametrize("world,mesh,arch,what", CASES)

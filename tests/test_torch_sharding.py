@@ -326,3 +326,77 @@ def test_moe_local_map_matches_reference_shard_map(arch, one_rank):
     plain_y, plain_aux = TL.moe_forward(tp, tcfg, torch.from_numpy(x))
     np.testing.assert_allclose(_np(ty.full_tensor()), _np(plain_y),
                                rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# prefill_chunk under a mesh at one rank
+# ---------------------------------------------------------------------------
+
+def _staging_layers(jcfg, jcache):
+    """The reference's staging cache as [layers, B, S, KV, hd] (k, v), its
+    stages' repeats unrolled in ``layer_list`` order."""
+    ks, vs = [], []
+    for si, stage in enumerate(jcfg.stages):
+        for r in range(stage.repeat):
+            for pi in range(len(stage.pattern)):
+                blk = jcache["stages"][si][f"blk{pi}"]
+                ks.append(np.asarray(blk["k"])[r])
+                vs.append(np.asarray(blk["v"])[r])
+    return np.stack(ks), np.stack(vs)
+
+
+@pytest.mark.parametrize("arch", ["llama3.1-8b", "gemma3-27b"])
+def test_prefill_chunk_under_a_mesh_matches_reference(arch, one_rank):
+    """Three chunks of 6 tokens through ``prefill_chunk(ctx=)`` on a model
+    and staging cache placed on a 1 x 1 gloo mesh: each layer writes and
+    runs the flash kernel's plain version on its shard under ``local_map``
+    (``_chunk_sharded``, where a DTensor written into a plain cache used to
+    fail), and the logits and staging rows equal the port's unsharded run
+    and the reference's ``prefill_chunk`` under its ctx (an ``Auto``-axes
+    mesh) within 1e-5.  A plain staging cache under the ctx raises."""
+    from jax.sharding import AxisType
+    from repro_torch.launch import sharded as SH
+    jcfg, tcfg, params, model = _bridged(arch)
+    ctx = one_rank
+    jctx = JCtx(mesh=jax.make_mesh((1, 1), ("data", "model"),
+                                   axis_types=(AxisType.Auto,) * 2),
+                data_axes=("data",))
+    toks = np.random.default_rng(7).integers(0, tcfg.vocab_size, (1, 18))
+    max_len = 24
+    placed = SH.placed_copy(model, ctx)
+    plain = TM.init_cache(tcfg, 1, max_len, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="place_staging"):
+        TM.prefill_chunk(placed, plain, torch.from_numpy(toks[:, :6]), ctx)
+    jcache = JM.init_cache(jcfg, 1, max_len, dtype=jnp.float32, ring=False)
+    tcache = TM.init_cache(tcfg, 1, max_len, dtype=torch.float32,
+                           device="cpu")
+    scache = SH.place_staging(TM.init_cache(tcfg, 1, max_len,
+                                            dtype=torch.float32,
+                                            device="cpu"), tcfg, ctx)
+    calls = []
+    real = TL._chunk_sharded
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TL, "_chunk_sharded",
+                   lambda *a: calls.append(1) or real(*a))
+        for s in (0, 6, 12):
+            chunk = toks[:, s:s + 6]
+            jl, jcache = JM.prefill_chunk(params, jcfg, jcache,
+                                          jnp.asarray(chunk, jnp.int32),
+                                          ctx=jctx)
+            tl, tcache = TM.prefill_chunk(model, tcache,
+                                          torch.from_numpy(chunk))
+            sl, scache = TM.prefill_chunk(
+                placed, scache, SH.place_batch(torch.from_numpy(chunk), ctx),
+                ctx)
+            np.testing.assert_allclose(_np(sl.full_tensor()), np.asarray(jl),
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(_np(sl.full_tensor()), _np(tl),
+                                       rtol=1e-5, atol=1e-5)
+    assert len(calls) == 3 * tcfg.num_layers
+    assert scache["pos"] == tcache["pos"] == 18
+    jk, jv = _staging_layers(jcfg, jcache)
+    for name, j in (("k", jk), ("v", jv)):
+        rows = _np(scache[name].full_tensor())[:, :, :18]
+        np.testing.assert_allclose(rows, _np(tcache[name])[:, :, :18],
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(rows, j[:, :, :18], rtol=1e-5, atol=1e-5)
