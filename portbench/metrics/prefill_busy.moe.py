@@ -1,0 +1,8 @@
+"""The MoE cell's eager MLA and MoE prefill: of the ``prefill.call`` spans
+opened under the profiler, the share of their time, placed on the trace's
+clock, that device operations cover, in %."""
+from pb.spans import busy_share
+
+
+def read(run):
+    return busy_share(run, "prefill.call")

@@ -54,7 +54,21 @@ events deque.  Deliberate differences:
   through ``ring_decode_step(ctx=)`` at the ring's ``pos``, a view of the
   host buffer's positions (each row's tokens less one, 0 in a free row),
   captured and replayed on the card as the paged step is.  The mesh must
-  be on the engine's device.
+  be on the engine's device;
+* ``trace`` (``engine/trace.py``'s ``Tracer``) records the engine's spans
+  beside its events: ``queued`` (rid) from ``submit`` to the start of
+  admission; ``prefill`` (rid) from there to the first token, the
+  ``prefill`` event's dt; under it one ``prefill.call`` (rid, ``tokens``)
+  a one-shot prefill or chunk call, a chunk that ends without a
+  synchronise closing at the engine's next one (or its next chunk's
+  start); and ``decode`` (``rows``, and ``pages`` in use of the ``pool``
+  where the engine has pages) from the ``decode`` event's first clock
+  read to the end of its token bookkeeping, tiled by ``decode.fill``
+  (``cache.extend``, ``_fill_inputs``), ``decode.launch`` (the replay),
+  ``decode.wait`` (the synchronise that ends the event) and
+  ``decode.readback`` (``tolist``, tokens, finishing).  Spans take the
+  events' clock reads and the synchronises the engine already makes, and
+  add none.
 
 The kernel wrappers count launches in Python, which a graph replay does
 not run: the counts made while warming up and capturing are taken back, and
@@ -65,7 +79,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import torch
 
@@ -77,6 +91,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.engine.kv_cache import PagedKVCache
 from repro_torch.engine.latent_cache import LatentCache
 from repro_torch.engine.state_cache import SSMStateCache
+from repro_torch.engine.trace import Span, Tracer
 from repro_torch.engine.window_cache import WindowCache
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -171,6 +186,8 @@ class InferenceEngine:
             self._stage_cache = shd.place_staging(self._stage_cache, cfg, ctx)
         self._staging: Optional[dict] = None
         self.events: Deque[tuple] = deque(maxlen=max_events)
+        self.trace = Tracer()
+        self._queued: Dict[int, Span] = {}     # rid: its open ``queued`` span
         self.completed: List[EngineRequest] = []
         self.graph_replays = 0
         self.capture_s: Optional[float] = None
@@ -325,6 +342,8 @@ class InferenceEngine:
             raise ValueError(f"request {req.rid}: {len(req.tokens)} tokens, "
                              f"engine holds 1..{self.max_len - 1}")
         self.queue.append(req)
+        self._queued[req.rid] = self.trace.open(
+            "queued", time.perf_counter(), req.rid, note=False)
 
     def drain_events(self) -> List[tuple]:
         """Hand the accumulated (kind, size, dt) timing events to the
@@ -348,6 +367,7 @@ class InferenceEngine:
         for r in self.queue:
             if r.rid == rid:
                 self.queue.remove(r)
+                self._queued.pop(rid, None)     # never admitted here
                 return r
         return None
 
@@ -388,14 +408,27 @@ class InferenceEngine:
 
     # -- admission: one-shot and chunked prefill ------------------------------
 
+    def _start_prefill(self, req: EngineRequest, t0: float) -> Span:
+        """Close ``req``'s ``queued`` span and open its ``prefill`` at t0,
+        the start of its admission."""
+        queued = self._queued.pop(req.rid, None)
+        if queued is not None:
+            self.trace.close(queued, t0)
+        return self.trace.open("prefill", t0, req.rid, note=False)
+
     def _admit(self):
         for i in range(self.max_batch):
             if self.slots[i] is None and self.queue:
                 req = self.queue.pop(0)
                 t0 = self._clock()
+                span = self._start_prefill(req, t0)
+                call = self.trace.open("prefill.call", t0, req.rid, span)
+                n = len(req.tokens)
                 self._prefill_into_slot(i, req)
-                self.events.append(("prefill", req.prompt_len,
-                                    self._clock() - t0))
+                t1 = self._clock()
+                self.trace.close(call, t1, tokens=n)
+                self.trace.close(span, t1)
+                self.events.append(("prefill", req.prompt_len, t1 - t0))
 
     def _prefill_into_slot(self, slot: int, req: EngineRequest):
         if self.ctx.enabled:
@@ -436,18 +469,29 @@ class InferenceEngine:
                         None)
             if free is None or not self.queue:
                 return
-            self._staging = {"slot": free, "req": self.queue.pop(0),
-                             "t0": self._clock()}
+            req, t_open = self.queue.pop(0), self._clock()
+            self._staging = {"slot": free, "req": req, "t0": t_open,
+                             "span": self._start_prefill(req, t_open),
+                             "call": None}
             self._stage_cache["pos"] = 0
+        else:
+            t_open = time.perf_counter()
         st, sc = self._staging, self._stage_cache
         req, done = st["req"], sc["pos"]
         n_total = len(req.tokens)
         n = min(self.prefill_chunk, n_total - done)
+        self._settle_chunk(t_open)
+        st["call"] = self.trace.open("prefill.call", t_open, req.rid,
+                                     st["span"])
+        st["n"] = n
         chunk = self._tokens(req.tokens[done:done + n])[None]
         if self.ctx.enabled:
             chunk = shd.place_batch(chunk, self.ctx)
         logits, _ = prefill_chunk(self.params, sc, chunk, self.ctx)
         if sc["pos"] < n_total:
+            # no synchronise here: the call's span ends at the engine's
+            # next one, or where its next chunk opens
+            self.trace.end_note(st["call"])
             return
         # prompt complete: copy the staged rows into pages and rings (under
         # a mesh: into the slot's row of the ring cache), emit a token
@@ -471,9 +515,20 @@ class InferenceEngine:
         req = st["req"]
         req.tokens.append(self._greedy(logits)[0])
         self.slots[st["slot"]] = req
-        self.events.append(("prefill", req.prompt_len,
-                            self._clock() - st["t0"]))
+        t1 = self._clock()
+        self.trace.close(st["call"], t1, tokens=st["n"])
+        self.trace.close(st["span"], t1)
+        self.events.append(("prefill", req.prompt_len, t1 - st["t0"]))
         self._staging = None
+
+    def _settle_chunk(self, t: float):
+        """End the span of a chunk call that had no synchronise of its own
+        at ``t``: the engine's next synchronise, or its next chunk's
+        start."""
+        st = self._staging
+        if st is not None and st["call"] is not None:
+            self.trace.close(st["call"], t, tokens=st["n"])
+            st["call"] = None
 
     def step(self) -> int:
         """One engine iteration; returns number of active requests."""
@@ -485,12 +540,24 @@ class InferenceEngine:
         if not active:
             return 0
         t0 = self._clock()
+        tr = self.trace
+        self._settle_chunk(t0)
+        tr.sample_clock()
+        span = tr.open("decode", t0)
+        tr.next_child(span, "decode.fill", t0)
         if self.cache is not None:
             for i in active:
                 self.cache.extend(i, 1)
         self._fill_inputs(active)
+        pages = {} if self.cache is None else {
+            "pages": self.cache.num_pages - len(self.cache.free),
+            "pool": self.cache.num_pages}
+        tr.next_child(span, "decode.launch", time.perf_counter())
         out = self._run_decode()
-        self.events.append(("decode", len(active), self._clock() - t0))
+        tr.next_child(span, "decode.wait", time.perf_counter())
+        t1 = self._clock()
+        self.events.append(("decode", len(active), t1 - t0))
+        tr.next_child(span, "decode.readback", t1)
         tokens, finite = out.tolist()
         if not all(finite[i] for i in active):
             raise FloatingPointError("non-finite logits")
@@ -503,6 +570,7 @@ class InferenceEngine:
                 req.done = True
                 self.completed.append(req)
                 self._free(i)
+        tr.close(span, time.perf_counter(), rows=len(active), **pages)
         return len(active)
 
     def run_until_drained(self, max_iters: int = 10000):
