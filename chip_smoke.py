@@ -7,8 +7,9 @@ Needs one CUDA card (written for an H100) and ``nvcc``; imports nothing of
 JAX.  Phases, each printing one JSON line:
 
 1. card: ``nvidia-smi`` name and power limit, torch/CUDA versions, the
-   build of every kernel from ``src/repro_torch/kernels/*/csrc`` (three:
-   paged decode, flash attention, SSD scan), ptxas's registers and spills,
+   build of every kernel library from ``src/repro_torch/kernels/*/csrc``
+   (four: paged decode, flash attention, SSD scan, and the decode step's
+   fused glue), ptxas's registers and spills,
    and the count of tensor-core instructions (``HGMMA``, ``HMMA``) that
    ``cuobjdump -sass`` finds in the flash and SSD libraries, where the
    toolkit has ``cuobjdump``; then ``ptxas`` lines: ptxas's report
@@ -103,7 +104,21 @@ JAX.  Phases, each printing one JSON line:
    (a cap that bites), bf16 and fp32, G 1 and 8, hd 128 and 256, over
    pages and over a ring, each with a row at ctx 0 and one whose ctx ends
    inside the second split, on pools that are NaN wherever the kernel
-   must not read, each timed capped and uncapped;
+   must not read, each timed capped and uncapped.  Then the decode
+   step's fused glue (``decode_fused`` lines): ``add_rms_norm`` (with and
+   without the residual add), ``rope_kv_write`` and ``act_mul``, each
+   against its plain chain (``kernels/decode_fused/ref.py``) on the same
+   inputs, the page pools compared whole after both wrote into them,
+   within one bf16 rounding step of the largest output (1e-5 of it in
+   fp32; ``FUSED_TOL``), timed beside the chain at minicpm-2b's decode
+   (B=16, d 2304, H=KV=36, hd 64) and qwen3-32b's (B=4, d 5120, qk_norm,
+   H 64 over KV 8, hd 128) in bf16 (``FUSED_ROWS``), and untimed on
+   ``FUSED_BRANCHES``: hd 16-256, qk_norm, tanh-gelu, rows and sizes no
+   16-byte vector divides, paged rows with a free row on the scratch
+   page, window rings before and after they wrap; last, one minicpm-2b
+   decode replay (16 slots of 1024-token prompts) profiled with the fused
+   glue and with the plain chains (``decode_replay`` lines: kernels a
+   replay, device busy ms, ms a replay outside the profiler);
 3. reduced: reduced llama3.1-8b, mamba2-1.3b, a hybrid (a mamba layer,
    then full attention), minicpm-2b, qwen3-32b (qk_norm), internvl2-1b,
    musicgen-medium, deepseek-v2-lite-16b (MLA and MoE: no kernel, the
@@ -1220,6 +1235,230 @@ def check_softcap(cases: dict):
                                  f"plain version: {r}")
 
 
+# (arch, B, d, H, KV, hd, d_ff, qk_norm, act) of the timed fused-glue rows:
+# the decode step of minicpm-2b (two engines of 16 slots) and of qwen3-32b
+# (qk_norm, GQA 64/8 at hd 128; 4 slots an engine at full width)
+FUSED_ROWS = [("minicpm-2b", 16, 2304, 36, 36, 64, 5760, False, "silu"),
+              ("qwen3-32b", 4, 5120, 64, 8, 128, 25600, True, "silu")]
+# (B, d, H, KV, hd, qk_norm, act, ring, page, dtype_name) of the untimed
+# fused-glue branches: head dims 16-256, qk_norm, tanh-gelu, rows (d) and
+# sizes (B x d_ff) that take no 16-byte vectors, window rings before and
+# after they wrap
+FUSED_BRANCHES = [
+    (3, 64, 4, 2, 16, False, "silu", None, 4, "float32"),
+    (3, 100, 4, 4, 32, True, "gelu", None, 8, "bfloat16"),
+    (5, 256, 8, 2, 64, True, "silu", 16, 4, "float32"),
+    (5, 256, 8, 2, 64, False, "gelu", 16, 4, "bfloat16"),
+    (2, 384, 6, 3, 128, True, "gelu", 40, 16, "bfloat16"),
+    (4, 512, 4, 2, 256, True, "silu", None, 16, "bfloat16"),
+    (4, 512, 4, 2, 256, False, "gelu", 1024, 16, "float32"),
+    (3, 2304, 36, 36, 64, False, "silu", None, 16, "float32"),
+]
+# a kernel against its plain chain: within one rounding step of the
+# largest output in bf16 (a sum of squares taken in another order moves
+# the norm's fp32 result by an ulp, and that can move a bf16 rounding),
+# 1e-5 of it in fp32
+FUSED_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
+
+
+def _fused_err(pairs, dtype_name: str) -> dict:
+    """max abs err over (kernel output, plain output) pairs, and its limit:
+    ``FUSED_TOL`` of the plain outputs' largest magnitude."""
+    err = max(max_err(a, b) for a, b in pairs)
+    top = max(b.float().abs().max().item() for _, b in pairs)
+    return {"max_abs_err": err, "tol": FUSED_TOL[dtype_name] * max(top, 1.0)}
+
+
+def _fused_inputs(B, d, H, KV, hd, qk_norm, ring, page, dtype_name, seed,
+                  d_ff=None, n_pages=None):
+    """The fused glue's inputs at one decode step's shapes: the residual
+    x and a block output y [B, 1, d], a norm weight, q/k/v, their norms,
+    page pools holding each row's pages, the tables and context lengths
+    (row 0 free: length 1 on the scratch page, or 0 before a ring), and
+    the gate and up [B, 1, d_ff] (by default 3 d + 5, which no 16-byte
+    vector divides)."""
+    import torch
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dt)
+    if ring is None:
+        n = n_pages or 8
+        lens = torch.randint(1, n * page + 1, (B,), generator=g,
+                             device="cuda")
+        lens[0] = 1
+        tables = (torch.arange(B * n, device="cuda") + 1).reshape(B, n)
+        tables[0] = 0                     # the scratch page
+        P = B * n + 1
+    else:
+        n = -(-ring // page)
+        lens = torch.randint(1, 3 * ring, (B,), generator=g, device="cuda")
+        lens[0], lens[-1] = 0, ring + 1   # a free row; one just past the wrap
+        tables = torch.arange(B * n, device="cuda").reshape(B, n)
+        P = B * n
+    ff = d_ff or 3 * d + 5
+    return dict(x=rnd(B, 1, d), y=rnd(B, 1, d), w=rnd(d, std=0.1),
+                q=rnd(B, H, hd), k=rnd(B, KV, hd), v=rnd(B, KV, hd),
+                q_norm=rnd(hd, std=0.1) if qk_norm else None,
+                k_norm=rnd(hd, std=0.1) if qk_norm else None,
+                k_pages=rnd(P, page, KV, hd), v_pages=rnd(P, page, KV, hd),
+                tables=tables.to(torch.int32).contiguous(),
+                lens=lens.to(torch.int32), g=rnd(B, 1, ff, std=2.0),
+                u=rnd(B, 1, ff), ring=ring)
+
+
+def fused_case(B, d, H, KV, hd, qk_norm, act, ring, page, dtype_name, seed,
+               d_ff=None, n_pages=None, timed=False, theta=1e6, eps=1e-6):
+    """``add_rms_norm`` (with and without y), ``rope_kv_write`` and
+    ``act_mul`` on the card against their plain chains (``ref.py``) on the
+    same inputs: outputs, and the whole page pools after each wrote its
+    slots.  ``timed``: each kernel's and chain's device ms, and bounds."""
+    import torch
+    from repro_torch.kernels.decode_fused import ops, ref
+    a = _fused_inputs(B, d, H, KV, hd, qk_norm, ring, page, dtype_name, seed,
+                      d_ff, n_pages)
+    pools = [(a["k_pages"].clone(), a["v_pages"].clone()) for _ in range(2)]
+
+    def rope(fn, kp, vp):
+        return lambda: fn(a["q"], a["k"], a["v"], a["lens"], a["tables"], kp,
+                          vp, theta, a["q_norm"], a["k_norm"], eps, ring)
+    runs = {
+        "add_rms_norm": (lambda: ops.add_rms_norm(a["x"], a["y"], a["w"], eps),
+                         lambda: ref.add_rms_norm_ref(a["x"], a["y"], a["w"],
+                                                      eps)),
+        "rms_norm": (lambda: ops.add_rms_norm(a["x"], None, a["w"], eps),
+                     lambda: ref.add_rms_norm_ref(a["x"], None, a["w"], eps)),
+        "rope_kv_write": (rope(ops.rope_kv_write, *pools[0]),
+                          rope(ref.rope_kv_write_ref, *pools[1])),
+        "act_mul": (lambda: ops.act_mul(a["g"], a["u"], act),
+                    lambda: ref.act_mul_ref(a["g"], a["u"], act)),
+    }
+    es = a["x"].element_size()
+    n, n_ff, qkv = B * d, a["g"].numel(), B * (H + 2 * KV) * hd
+    nbytes = {"add_rms_norm": es * (4 * n + d), "rms_norm": es * (2 * n + d),
+              "rope_kv_write": es * (qkv + B * H * hd + 2 * B * KV * hd)
+              + 8 * B + 4 * (hd // 2),
+              "act_mul": 3 * es * n_ff}
+    rows = []
+    for name, (fused, plain) in runs.items():
+        got, want = fused(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        pairs = list(zip(got, want))
+        if name == "rope_kv_write":
+            pairs += list(zip(pools[0], pools[1]))
+        row = {"name": name, "B": B, "d": d, "H": H, "KV": KV, "hd": hd,
+               "qk_norm": qk_norm, "act": act, "ring": ring, "page": page,
+               "dtype": dtype_name, "d_ff": a["g"].shape[-1],
+               **_fused_err(pairs, dtype_name)}
+        if timed:
+            b_ms, by = bound(nbytes[name], 0.0, dtype_name)
+            row.update(ms=time_ms(fused), plain_ms=time_ms(plain),
+                       bound_ms=b_ms, bound_by=by, library_ms=None)
+        rows.append(row)
+    return rows
+
+
+def decode_replay_case(card: str, plain: bool, steps: int = 5) -> dict:
+    """One captured decode step of minicpm-2b at full width, 16 slots of
+    1024-token prompts: the kernels in one replay of the engine's graph
+    (``profile_step``'s trace of ``steps`` replays), its device busy ms,
+    and its ms outside the profiler (20 replays between two events).
+    ``plain``: the step's glue through the plain chains, the step as it
+    ran before the fused kernels."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine.engine import EngineRequest, InferenceEngine
+    from repro_torch.launch.profile_step import _traced
+    from repro_torch.models.model import init_params
+    _free_card()
+    cfg = get_config("minicpm-2b")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    with plain_glue() if plain else contextlib.nullcontext():
+        eng = InferenceEngine(cfg, params, max_batch=16, max_len=2048,
+                              device="cuda")
+        g = torch.Generator().manual_seed(0)
+        for rid in range(16):
+            eng.submit(EngineRequest(
+                rid=rid, prompt_len=1024, max_new_tokens=512,
+                tokens=torch.randint(0, cfg.vocab_size, (1024,),
+                                     generator=g).tolist()))
+        eng.step()
+        out = ROOT / "build" / "fused_replay"
+        out.mkdir(parents=True, exist_ok=True)
+        line = _traced("plain" if plain else "fused", eng._graph.replay,
+                       steps, out)
+        eng._graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            eng._graph.replay()
+        end.record()
+        end.synchronize()
+    res = {"phase": "decode_replay", "config": cfg.name, "slots": 16,
+           "prompt": 1024, "glue": "plain" if plain else "fused",
+           "kernels_per_replay": line["launches_per_step"],
+           "device_busy_ms": line["device_busy_ms"],
+           "replay_ms": start.elapsed_time(end) / 20,
+           "device_ms_by_kind": line["device_ms_by_kind"],
+           "port_kernels": line["port_kernels"], "nvidia_smi": card}
+    del eng, params
+    _free_card()
+    return res
+
+
+@contextlib.contextmanager
+def plain_glue():
+    """The decode step's glue through the plain chains of
+    ``kernels/decode_fused/ref.py`` in place of the fused kernels."""
+    from repro_torch.kernels.decode_fused import ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    saved = M.add_rms_norm, L.rope_kv_write, L.act_mul
+    M.add_rms_norm, L.rope_kv_write, L.act_mul = (
+        ref.add_rms_norm_ref, ref.rope_kv_write_ref, ref.act_mul_ref)
+    try:
+        yield
+    finally:
+        M.add_rms_norm, L.rope_kv_write, L.act_mul = saved
+
+
+def check_decode_fused(cases: dict, card: str):
+    """The fused decode glue: ``FUSED_ROWS`` timed (into
+    ``cases["fused_rows"]``), ``FUSED_BRANCHES`` untimed, each kernel within
+    ``FUSED_TOL`` of its plain chain; then one minicpm-2b replay's kernels
+    with the fused glue and with the plain chains (``cases["replays"]``)."""
+    from repro_torch.configs import get_config
+    for i, (arch, B, d, H, KV, hd, d_ff, qk, act) in enumerate(FUSED_ROWS):
+        cfg = get_config(arch)
+        for r in fused_case(B, d, H, KV, hd, qk, act, None, 16, "bfloat16",
+                            seed=800 + i, d_ff=d_ff, n_pages=256, timed=True,
+                            theta=cfg.rope_theta, eps=cfg.norm_eps):
+            r = {"model": arch, **r}
+            emit({"phase": "decode_fused", **r})
+            cases.setdefault("fused_rows", []).append(r)
+            if not r["max_abs_err"] <= r["tol"]:          # NaN fails too
+                raise AssertionError(f"{r['name']} at {arch}'s shape "
+                                     f"disagrees with its plain chain: {r}")
+    for i, shape in enumerate(FUSED_BRANCHES):
+        for r in fused_case(*shape, seed=900 + i):
+            emit({"phase": "kernel_branch", **r})
+            if not r["max_abs_err"] <= r["tol"]:          # NaN fails too
+                raise AssertionError(f"{r['name']} disagrees with its plain "
+                                     f"chain: {r}")
+    replays = [decode_replay_case(card, plain) for plain in (True, False)]
+    for r in replays:
+        emit(r)
+    cases["replays"] = replays
+    if not replays[1]["kernels_per_replay"] < replays[0]["kernels_per_replay"]:
+        raise AssertionError(f"the fused glue launches no fewer kernels a "
+                             f"replay: {replays}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: reduced model, kernel path against the CPU plain path
 # ---------------------------------------------------------------------------
@@ -1239,11 +1478,26 @@ def wrappers():
 
 
 def path_kernels(cfg):
-    """The kernels the serving path of ``cfg`` launches (MLA runs none)."""
+    """The kernels the serving path of ``cfg`` launches (MLA runs none of
+    the attention kernels)."""
     from repro_torch.models.model import layer_caches
     attn = {"flash_attention", "paged_attention"}
     by_cache = {"kv": attn, "win": attn, "ssm": {"ssd"}, "mla": set()}
-    return set().union(*(by_cache[kind] for kind, _ in layer_caches(cfg)))
+    return set().union(*(by_cache[kind] for kind, _ in layer_caches(cfg)),
+                       (k for k, n in decode_fused_counts(cfg).items() if n))
+
+
+def decode_fused_counts(cfg) -> dict:
+    """The fused glue's launches in one decode step of ``cfg``: an
+    ``add_rms_norm`` before each attention (full or window) layer and
+    dense FFN and one at the final norm, one ``rope_kv_write`` per
+    attention layer, one ``act_mul`` per dense FFN (MLA, mamba and MoE
+    blocks run none)."""
+    n = layer_counts(cfg)
+    attn = n["kv"] + n["win"]
+    dense = sum(b.ffn == "dense" for b in cfg.layer_list())
+    return {"add_rms_norm": attn + dense + 1, "rope_kv_write": attn,
+            "act_mul": dense}
 
 
 def layer_counts(cfg) -> dict:
@@ -1493,7 +1747,9 @@ def serve_full_width(arch: str, card: str, max_batch=None, periods=None,
     kernels = path_kernels(cfg)
     want = {"flash_attention": (n["kv"] + n["win"]) * prefill_calls,
             "ssd": n["ssm"] * prefill_calls,
-            "paged_attention": (n["kv"] + n["win"]) * len(decodes)}
+            "paged_attention": (n["kv"] + n["win"]) * len(decodes),
+            **{k: c * len(decodes)
+               for k, c in decode_fused_counts(cfg).items()}}
     if not (len(done) == n_req
             and all(len(r.generated) == max_new for r in done)
             and launches == want and all(want[n] > 0 for n in kernels)
@@ -1564,7 +1820,8 @@ def serve_variant(card: str) -> dict:
                         for r in eng.completed)
             want = {"flash_attention": (n["kv"] + n["win"]) * calls,
                     "paged_attention": (n["kv"] + n["win"]) * len(decodes),
-                    "ssd": 0}
+                    "ssd": 0, **{k: c * len(decodes) for k, c in
+                                 decode_fused_counts(cfg).items()}}
             res = {"phase": "serve_variant", "config": cfg.name,
                    "turn": turn, "softcap": cfg.logit_softcap,
                    "windows": sorted({b.window for b in cfg.layer_list()
@@ -2599,8 +2856,11 @@ def engine_under_mesh(arch: str, dtype_name: str, n_req: int, chunks, ctx,
             calls = sum(1 if chunk is None else math.ceil(r.prompt_len / chunk)
                         for r in eng.completed)
             attn = n["kv"] + n["win"]
+            # the mesh engine's ring decode runs no paged or fused kernel
             want = {"flash_attention": attn * calls, "ssd": n["ssm"] * calls,
-                    "paged_attention": 0 if c.enabled else attn * len(steps)}
+                    "paged_attention": 0 if c.enabled else attn * len(steps),
+                    **{k: 0 if c.enabled else m * len(steps)
+                       for k, m in decode_fused_counts(cfg).items()}}
             runs[name] = {
                 "finished": len(eng.completed), "prefill_calls": calls,
                 "decode_steps": len(steps), "graph_replays": eng.graph_replays,
@@ -2713,7 +2973,7 @@ def sharded_phase(card: str) -> dict:
     SH.start_world(device="cuda")
     ctx = SH.mesh_ctx(1, 1, device="cuda")
     by_path = {}
-    none = {"flash_attention": 0, "paged_attention": 0, "ssd": 0}
+    none = {n: 0 for n in wrappers()}
     # llama3.1-8b: B2 once per layer; then the ring decode against the
     # engine's decode step (B1 over pages) from the unsharded prefill
     model, logits, states, counts, (paged, paged_logits) = _sharded_prefill(
@@ -2800,14 +3060,15 @@ def main() -> int:
                                  f"wgmma: {report}")
 
     cases = check_kernels()
+    check_decode_fused(cases, card)
     for arch in REDUCED_ARCHS:
         check_reduced(arch)
     launches, by_path = {}, {}
     for arch, max_batch, periods, dtype_name in SERVED:
         ran = serve_full_width(arch, card, max_batch, periods, dtype_name)
         if arch in ("llama3.1-8b", "mamba2-1.3b") and dtype_name is None:
-            launches.update({n: ran[n]
-                             for n in path_kernels(get_config(arch))})
+            for n in path_kernels(get_config(arch)):
+                launches.setdefault(n, ran[n])
         cut = "" if periods is None else f" ({periods} periods)"
         by_path[f"{arch}{cut}{' ' + dtype_name if dtype_name else ''} "
                 f"serve"] = ran
@@ -2870,7 +3131,12 @@ def main() -> int:
              name="flash_attention_fp32"),
         line("ssd", "cuda", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
              "src/repro/kernels/ssd/ssd.py:20", scan),
-    ], "not_ported": [], "smoke_s": time.perf_counter() - t_start})
+        *(line(name, "cuda", "src/repro_torch/kernels/decode_fused/csrc/"
+               "decode_fused.cu", "none: XLA fuses this glue in the JAX step",
+               next(r for r in cases["fused_rows"] if r["name"] == name))
+          for name in ("add_rms_norm", "rope_kv_write", "act_mul")),
+    ], "decode_replays": cases["replays"], "not_ported": [],
+        "smoke_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

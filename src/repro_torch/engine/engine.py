@@ -93,6 +93,8 @@ from repro_torch.engine.latent_cache import LatentCache
 from repro_torch.engine.state_cache import SSMStateCache
 from repro_torch.engine.trace import Span, Tracer
 from repro_torch.engine.window_cache import WindowCache
+from repro_torch.kernels.decode_fused.ops import (act_mul, add_rms_norm,
+                                                  rope_kv_write)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.ssd.ops import ssd
@@ -102,7 +104,9 @@ from repro_torch.models.model import (Model, decode_step, init_cache,
                                       ring_decode_step, splice_ring,
                                       to_ring_cache)
 
-KERNELS = (paged_attention, flash_attention, ssd)   # their ``launches``
+# the kernel wrappers whose ``launches`` a graph replay adds to
+KERNELS = (paged_attention, flash_attention, ssd, add_rms_norm, rope_kv_write,
+           act_mul)
 WARMUP_STEPS = 2        # eager decode steps on a side stream before capture
 
 

@@ -1,0 +1,53 @@
+"""Plain PyTorch versions of the fused decode glue: the CPU path of
+``ops.add_rms_norm``, ``ops.rope_kv_write`` and ``ops.act_mul``, and the
+chains the kernels are held to.
+
+Each is the decode step's chain as the model layers write it, unchanged:
+``models/layers.py`` ``rms_norm``, ``rope`` and ``_act`` (imported when
+called: the layers import the wrappers), with the paged and ring index
+math of the engine's decode (a paged row writes position ``context_lens -
+1``; a ring row of ``ring`` rows writes row ``pos % ring``, pos clamped at
+0)."""
+from __future__ import annotations
+
+from typing import Optional
+
+
+def add_rms_norm_ref(x, y, w, eps: float):
+    """(x + y, rms_norm(x + y, w, eps)); y None: (x, rms_norm(x, w, eps))."""
+    from repro_torch.models.layers import rms_norm
+    s = x if y is None else x + y
+    return s, rms_norm(s, w, eps)
+
+
+def rope_kv_write_ref(q, k, v, context_lens, tables, k_pages, v_pages,
+                      theta: float, q_norm=None, k_norm=None,
+                      eps: float = 1e-6, ring: Optional[int] = None):
+    """q [B, H, hd], k/v [B, KV, hd]: the one-token projections.  Norms q
+    and k where ``q_norm``/``k_norm`` are given, rotates both at each row's
+    position, stores k and v into the row's slot of k/v_pages [P, page,
+    KV, hd] in place (page ``tables[b, row // page]``, offset ``row %
+    page``) and returns the rotated q."""
+    from repro_torch.models.layers import rms_norm, rope
+    page = k_pages.shape[1]
+    pos = context_lens.long() - 1
+    row = pos
+    if ring is not None:
+        pos = pos.clamp_min(0)
+        row = pos % ring
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, eps)
+        k = rms_norm(k, k_norm, eps)
+    q = rope(q[:, None], pos[:, None], theta)[:, 0]
+    k = rope(k[:, None], pos[:, None], theta)[:, 0]
+    idx = tables.long().gather(1, (row // page)[:, None])[:, 0] * page \
+        + row % page
+    k_pages.view(-1, *k_pages.shape[2:])[idx] = k
+    v_pages.view(-1, *v_pages.shape[2:])[idx] = v
+    return q
+
+
+def act_mul_ref(g, u, act: str):
+    """``_act(act)(g) * u``: silu, or tanh-gelu for ``act == "gelu"``."""
+    from repro_torch.models.layers import _act
+    return _act(act)(g) * u

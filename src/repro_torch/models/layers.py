@@ -23,16 +23,21 @@ their (pod, data) shard and the expert FF dim over the model axis, the
 down-projection summed over it.
 
 Attention goes through the kernel wrappers: ``attn_forward`` and
-``attn_chunk`` through ``flash_attention`` (full and window layers),
+``attn_chunk`` through ``flash_attention`` (full and window layers), and
 ``attn_decode`` through ``paged_attention`` over the engine's paged cache
-(the JAX layer attends over a dense per-slot ring), and ``window_decode``
-through ``paged_attention`` over a window layer's per-slot ring, laid out
-as whole pages of its slot (the JAX layer's ring with a masked
-``_sdpa``).  ``_sdpa`` stays as the plain reference the tests compare the
-layers against.  Training goes around the kernels, which run forward
-only and refuse inputs that require grad: ``attn_forward(..., train=True)``
-attends through ``_sdpa_chunked`` (:135-161), plain einsums over 512-row
-query chunks, each rematerialised, as the reference trains (:182).  MLA
+(the JAX layer attends over a dense per-slot ring) or over a window
+layer's per-slot ring, laid out as whole pages of its slot (the JAX
+layer's ring with a masked ``_sdpa``).  The decode step's glue goes
+through the fused kernels of ``kernels/decode_fused``: ``attn_decode``
+rotates q and k and writes the new K/V with ``rope_kv_write``, and
+``ffn_decode`` gates with ``act_mul``; both take the block's normed
+input, which the decode step forms with ``add_rms_norm``.  ``_sdpa``,
+``rms_norm`` and ``rope`` stay as the plain references the tests compare
+the layers and kernels against.  Training goes around the kernels, which
+run forward only and refuse inputs that require grad:
+``attn_forward(..., train=True)`` attends through ``_sdpa_chunked``
+(:135-161), plain einsums over 512-row query chunks, each
+rematerialised, as the reference trains (:182).  MLA
 and the MoE FFN run no kernel in
 the JAX package and none here: they are plain torch ops, and their decode
 paths read nothing on the host, so the engine's decode graph captures
@@ -53,6 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.context import (NULL_CTX, ShardCtx, _is_dtensor,
                                             contiguous_grads, replicated_like)
 from repro_torch.distributed.sharding import placements
+from repro_torch.kernels.decode_fused.ops import act_mul, rope_kv_write
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 
@@ -79,12 +85,16 @@ def _act(name: str):
     return F.silu
 
 
+def rope_freqs(hd: int, theta: float, device):
+    """RoPE's frequencies [hd / 2]: theta^(-i / (hd / 2)) in fp32."""
+    half = hd // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
 def rope(x, positions, theta: float):
     """Rotary embedding.  x: [..., L, H, hd]; positions: [..., L]."""
-    hd = x.shape[-1]
-    half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
     ang = positions[..., None].float() * freqs               # [..., L, half]
     cos = replicated_like(torch.cos(ang)[..., None, :], x)   # [..., L, 1, half]
     sin = replicated_like(torch.sin(ang)[..., None, :], x)
@@ -310,55 +320,35 @@ def _attend_sharded(q, k, v, window, softcap, ctx: ShardCtx, train: bool):
                      device_mesh=ctx.mesh, redistribute_inputs=True)(q, k, v)
 
 
-def attn_decode(p, cfg: ModelConfig, x, k_pages, v_pages, block_tables,
-                context_lens):
-    """One-token decode over the paged cache.  x: [B, 1, d]; k/v_pages:
-    [P, page, KV, hd] of this layer; block_tables int32 [B, n_pages];
-    context_lens int32 [B] counts the new token, which sits at position
-    ``context_lens - 1``.  Writes the new K/V into its page slot in place
-    (one indexed store each), then attends through the paged kernel, the
-    scores capped at ``cfg.logit_softcap`` where the config sets one."""
-    B = x.shape[0]
-    page = k_pages.shape[1]
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    pos = context_lens.long() - 1
-    q, k_new, v_new = _qkv(p, cfg, h, pos[:, None])
-    slot = block_tables.long().gather(1, (pos // page)[:, None])[:, 0]
-    idx = slot * page + pos % page
-    k_pages.view(-1, *k_pages.shape[2:])[idx] = k_new[:, 0]
-    v_pages.view(-1, *v_pages.shape[2:])[idx] = v_new[:, 0]
-    y = paged_attention(q[:, 0], k_pages, v_pages, block_tables, context_lens,
-                        cfg.logit_softcap)
-    return y.reshape(B, 1, -1) @ p["wo"]
-
-
-def window_decode(p, cfg: ModelConfig, x, k_ring, v_ring, ring_tables,
-                  context_lens, size: int):
-    """One-token decode of a window layer over its per-slot ring of
-    ``size`` = min(window, max_len) rows: the window branch of the JAX
-    ``attn_decode``.  x: [B, 1, d]; k/v_ring: [slots * n, page, KV, hd] of
-    this layer, slot b's ring being pages ``ring_tables[b]`` (int32 [B,
-    n], n * page >= size); context_lens int32 [B] counts the new token.
-    The new K/V goes to ring row ``pos % size``, pos = context_lens - 1,
-    and the paged kernel attends over rows 0 .. min(context_lens, size) -
-    1: every row the ring holds once it has wrapped, else the positions
-    so far, as JAX's mask ``slot <= pos | pos >= S`` keeps.  Rows hold K
-    after RoPE, so their order does not change the scores, which are capped
-    at ``cfg.logit_softcap`` where the config sets one.  A free row of
-    length 0 writes row 0 of its own ring and attends over nothing
-    (zeros); with length 1 it writes and reads row 0.  No host read."""
-    B = x.shape[0]
-    page = k_ring.shape[1]
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    pos = (context_lens.long() - 1).clamp_min(0)
-    q, k_new, v_new = _qkv(p, cfg, h, pos[:, None])
-    row = pos % size
-    idx = ring_tables.long().gather(1, (row // page)[:, None])[:, 0] * page \
-        + row % page
-    k_ring.view(-1, *k_ring.shape[2:])[idx] = k_new[:, 0]
-    v_ring.view(-1, *v_ring.shape[2:])[idx] = v_new[:, 0]
-    y = paged_attention(q[:, 0], k_ring, v_ring, ring_tables,
-                        context_lens.clamp_max(size), cfg.logit_softcap)
+def attn_decode(p, cfg: ModelConfig, h, k_pages, v_pages, tables,
+                context_lens, size: Optional[int] = None):
+    """One-token decode of the block's normed input h [B, 1, d] over the
+    engine's paged cache (``size`` None) or, for a window layer, over its
+    per-slot ring of ``size`` = min(window, max_len) rows: the JAX
+    ``attn_decode`` with the block's norm taken by the caller (the decode
+    step folds the residual add into it).  k/v_pages: [P, page, KV, hd] of
+    this layer; tables int32 [B, n] name each row's pages (a ring: slot
+    b's own pages, n * page >= size); context_lens int32 [B] counts the
+    new token.  ``rope_kv_write`` applies qk_norm, rotates q and k, and
+    writes the new K/V in place: paged, at position ``context_lens - 1``
+    (a free row, of length 1, on the scratch page); in a ring, at row
+    ``pos % size``, pos = max(context_lens - 1, 0), so a free row of
+    length 0 writes row 0 of its own ring.  The paged kernel then attends
+    over the first ``context_lens`` tokens, or ``min(context_lens,
+    size)`` ring rows: every row the ring holds once it has wrapped, else
+    the positions so far, as JAX's mask ``slot <= pos | pos >= S`` keeps
+    (rows hold K after RoPE, so their order does not change the scores);
+    the scores capped at ``cfg.logit_softcap`` where the config sets one.
+    No host read."""
+    B = h.shape[0]
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = rope_kv_write((h @ p["wq"]).view(B, H, hd),
+                      (h @ p["wk"]).view(B, KV, hd),
+                      (h @ p["wv"]).view(B, KV, hd), context_lens, tables,
+                      k_pages, v_pages, cfg.rope_theta, p.get("q_norm"),
+                      p.get("k_norm"), cfg.norm_eps, size)
+    lens = context_lens if size is None else context_lens.clamp_max(size)
+    y = paged_attention(q, k_pages, v_pages, tables, lens, cfg.logit_softcap)
     return y.reshape(B, 1, -1) @ p["wo"]
 
 
@@ -526,6 +516,13 @@ def ffn_forward(p, cfg: ModelConfig, x, ctx: ShardCtx = NULL_CTX):
     z = ctx.constraint(z, ctx.batch_spec_entry(x.shape[0]), None,
                        ctx.model_axis_if_divides(z.shape[-1]))
     return z @ p["w_down"]
+
+
+def ffn_decode(p, cfg: ModelConfig, h):
+    """The dense FFN of the block's normed input h (the decode step takes
+    the norm, with the residual add folded in): ``ffn_forward`` past its
+    norm, ``act(g) * u`` in one ``act_mul``."""
+    return act_mul(h @ p["w_gate"], h @ p["w_up"], cfg.act) @ p["w_down"]
 
 
 # ---------------------------------------------------------------------------

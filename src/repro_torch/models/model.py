@@ -26,6 +26,9 @@ Differences:
   (the ring laid out as whole pages of its slot), and updates the latent
   rows and the mamba states in place, every slot at once (the engine runs
   it at one fixed shape and, on the card, replays it from a CUDA graph);
+  the glue of its attention layers and dense FFNs (residual adds and
+  norms, RoPE and the K/V write, the gate) goes through the fused kernels
+  of ``kernels/decode_fused``;
 * ``prefill_chunk`` takes only real tokens (no padding to a fixed shape)
   and one ``pos`` for the batch;
 * ``init_cache`` defaults to ``ring=False`` (the staging layout, stacked
@@ -69,6 +72,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.context import (NULL_CTX, ShardCtx, _is_dtensor,
                                             local_rows, replicated_like,
                                             sharded_scope)
+from repro_torch.kernels.decode_fused.ops import add_rms_norm
 from repro_torch.models import layers as L
 from repro_torch.models import ssd
 
@@ -596,28 +600,41 @@ def decode_step(model: Model, tokens, cache: dict):
     {"x", "B", "C": [n ssm layers, B, K-1, ·]} and ``ssm`` [n ssm layers,
     B, H, P, N] f32 in place.  MoE layers route the B rows together.  No
     host read and no host-built tensor: the step can be captured in a
-    CUDA graph.  Returns logits [B, V]."""
+    CUDA graph.  Each block's output ``y`` is added to the residual stream
+    by the next block's norm (``add_rms_norm``, the final norm included),
+    where that block is an attention layer or a dense FFN; MLA, mamba and
+    MoE blocks add it first and norm inside.  Returns logits [B, V]."""
     cfg = model.cfg
+    eps = cfg.norm_eps
     x = embed_tokens(model, tokens)[:, None]
+    y = None                  # the last block's output, not yet in x
     for blk, (kind, i) in zip(model.layers, layer_caches(cfg)):
-        if kind == "kv":
-            x = x + L.attn_decode(blk.attn, cfg, x, cache["k_pages"][i],
+        if kind in ("kv", "win"):
+            x, h = add_rms_norm(x, y, blk.attn["ln"], eps)
+            if kind == "kv":
+                y = L.attn_decode(blk.attn, cfg, h, cache["k_pages"][i],
                                   cache["v_pages"][i], cache["block_tables"],
                                   cache["context_lens"])
-        elif kind == "win":
-            j, rank = cache["win_where"][i]
-            k, v, tables, size = cache["win_stacks"][j]
-            x = x + L.window_decode(blk.attn, cfg, x, k[rank], v[rank], tables,
-                                    cache["context_lens"], size)
-        elif kind == "mla":
-            x = x + L.mla_decode(blk.attn, cfg, x, cache["ckv"][i],
-                                 cache["kr"][i], cache["context_lens"])
+            else:
+                j, rank = cache["win_where"][i]
+                k, v, tables, size = cache["win_stacks"][j]
+                y = L.attn_decode(blk.attn, cfg, h, k[rank], v[rank], tables,
+                                  cache["context_lens"], size)
         else:
-            y, _ = ssd.mamba_decode(
-                blk.mixer, cfg, x, {k: v[i] for k, v in cache["conv"].items()},
-                cache["ssm"][i])
+            x = x if y is None else x + y
+            if kind == "mla":
+                y = L.mla_decode(blk.attn, cfg, x, cache["ckv"][i],
+                                 cache["kr"][i], cache["context_lens"])
+            else:
+                y, _ = ssd.mamba_decode(
+                    blk.mixer, cfg, x,
+                    {k: v[i] for k, v in cache["conv"].items()},
+                    cache["ssm"][i])
+        if blk.spec.ffn == "dense":
+            x, h = add_rms_norm(x, y, blk.ffn["ln"], eps)
+            y = L.ffn_decode(blk.ffn, cfg, h)
+        elif blk.spec.ffn == "moe":
             x = x + y
-        if blk.ffn is not None:
-            x = x + _ffn(blk.spec, blk.ffn, cfg, x)[0]
-    x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
-    return logits_fn(model, x[:, 0])
+            y, _ = L.moe_forward(blk.ffn, cfg, x)
+    _, h = add_rms_norm(x, y, model.top["final_norm"], eps)
+    return logits_fn(model, h[:, 0])

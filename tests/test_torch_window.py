@@ -165,9 +165,9 @@ def test_window_decode_matches_jax_across_the_wrap():
         x = rng.standard_normal((3, 1, tcfg.d_model)).astype(np.float32)
         jy, (jk, jv) = JL.attn_decode(jp, jcfg, jnp.asarray(x), jk, jv,
                                       jnp.asarray(pos), WINDOW)
-        ty = TL.window_decode(tp, tcfg, torch.from_numpy(x), win_k[0],
-                              win_v[0], tables, torch.from_numpy(pos + 1),
-                              size)
+        h = TL.rms_norm(torch.from_numpy(x), tp["ln"], tcfg.norm_eps)
+        ty = TL.attn_decode(tp, tcfg, h, win_k[0], win_v[0], tables,
+                            torch.from_numpy(pos + 1), size)
         np.testing.assert_allclose(_np(ty), _np(jy), **TOL)
         for slot in range(3):
             k_ring, v_ring = _ring_rows(cache, 0, slot)
@@ -364,9 +364,9 @@ def test_free_row_writes_only_its_own_ring(ctx):
     before = (ring.k.clone(), ring.v.clone())
     tp = TL.init_attention(tcfg, g, torch.float32)
     x = torch.randn((1, 1, tcfg.d_model), generator=g)
-    y = TL.window_decode(tp, tcfg, x, ring.k[0], ring.v[0],
-                         ring.tables[1:2],
-                         torch.tensor([ctx], dtype=torch.int32), ring.size)
+    y = TL.attn_decode(tp, tcfg, TL.rms_norm(x, tp["ln"], tcfg.norm_eps),
+                       ring.k[0], ring.v[0], ring.tables[1:2],
+                       torch.tensor([ctx], dtype=torch.int32), ring.size)
     assert bool(torch.isfinite(y).all())
     if ctx == 0:
         assert not y.any()
