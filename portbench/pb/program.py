@@ -3,28 +3,53 @@
 around the weights the benchmark drew, and its engines."""
 from __future__ import annotations
 
+import dataclasses
+import typing
+
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (BlockSpec, MLAConfig, ModelConfig,
-                                      MoEConfig, Stage)
+from repro_torch.configs.base import BlockSpec, ModelConfig, Stage
 from repro_torch.engine.engine import InferenceEngine
 from repro_torch.models.model import init_params
 
+from pb import spec
+
 
 def model_config(conf: dict) -> ModelConfig:
-    p = conf["port"]
-    stages = tuple(Stage(pattern=(BlockSpec(l["mixer"], l["ffn"]),),
-                         repeat=l["repeat"]) for l in p["layers"])
-    return ModelConfig(
-        name=conf["name"], family=p["family"], num_layers=p["num_layers"],
-        d_model=p["d_model"], num_heads=p["num_heads"],
-        num_kv_heads=p["num_kv_heads"], head_dim=p["head_dim"],
-        d_ff=p["d_ff"], vocab_size=p["vocab_size"], stages=stages,
-        moe=MoEConfig(**p["moe"]) if "moe" in p else None,
-        mla=MLAConfig(**p["mla"]) if "mla" in p else None,
-        rope_theta=p["rope_theta"], tie_embeddings=p["tie_embeddings"],
-        act=p["act"], norm_eps=p["norm_eps"], source=conf["source"])
+    """The port's ``ModelConfig`` of a configuration: ``name`` and
+    ``source`` from the file, every key of its ``port`` section given to
+    the field of that name (``layers``, ``spec.stages``' format, to
+    ``stages``).  A field whose type is a dataclass (``moe``, ``mla``,
+    ``ssm``) is built from its object, and a tuple from its list.  A key
+    that names no field raises: no setting is dropped."""
+    hints = typing.get_type_hints(ModelConfig)
+    kw = {"name": conf["name"], "source": conf["source"]}
+    for key, value in conf["port"].items():
+        if key == "layers":
+            kw["stages"] = tuple(
+                Stage(tuple(BlockSpec(**blk) for blk in pattern), repeat)
+                for pattern, repeat in spec.stages(conf["port"]))
+        elif key in hints and key != "stages":
+            kw[key] = _value(key, hints[key], value)
+        else:
+            raise ValueError(f"port key {key!r} names no field of the "
+                             f"port's ModelConfig")
+    return ModelConfig(**kw)
+
+
+def _value(key: str, hint, value):
+    """``value`` as the field ``key`` of type ``hint`` holds it."""
+    for cls in (hint, *typing.get_args(hint)):
+        if dataclasses.is_dataclass(cls) and isinstance(value, dict):
+            names = {f.name for f in dataclasses.fields(cls)}
+            if set(value) - names:
+                raise ValueError(f"port key {key!r}: {cls.__name__} has no "
+                                 f"field {sorted(set(value) - names)}")
+            return cls(**value)
+    if isinstance(value, list) and typing.get_origin(hint) is tuple:
+        return tuple(value)
+    return value
 
 
 def layout(cfg: ModelConfig, dtype) -> dict:

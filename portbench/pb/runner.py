@@ -80,12 +80,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     serving = conf["serving"]
     dtype = program.DTYPES[serving["dtype"]]
     cfg = program.model_config(conf)
-    ref = spec.reference(conf)
+    ref = spec.reference(conf, cell.bench_dir)
     lay = program.layout(cfg, dtype)
     leaves = ref.leaves(conf, lay["top.embed"][0][0])
     marks = {"imports_s": time.perf_counter() - t_start}
     t = time.perf_counter()
-    weights = wts.draw(leaves, seed, dtype, dev)
+    weights = wts.draw(leaves, seed, lay, dev)
     wts.zero_padding(weights, leaves, conf["vocab_size"])
     model = program.build_model(cfg, weights, dtype)
     if dev.type == "cuda":
@@ -149,7 +149,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     metrics_list = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in metrics_list:
-        value = spec.metric_reader(m.name).read(rec)
+        value = spec.metric_reader(m.name, cell.bench_dir).read(rec)
         if value is not None:
             metrics[m.name] = {"value": float(value), "unit": m.unit}
     if traffic.open:

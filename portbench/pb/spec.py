@@ -6,12 +6,14 @@ names a configuration (``portbench/configs/<config>.json``, whose
 traffic mix (``portbench/traffic/<traffic>.json``); the cell's own
 settings (its offered rate, the limit of its check) are in
 ``portbench/cells/<cell>.json``; each metric is read by
-``portbench/metrics/<metric>.py``.  A later cell, mix, configuration or
+``portbench/metrics/<metric>.py``.  A configuration's ``port`` section
+holds any field of the port's ``ModelConfig`` (``pb.program``) and its
+``layers`` in ``stages``' format; its reference module names the leaves
+to draw and the CPU tests' cut.  A later cell, mix, configuration or
 metric is new files and a new entry, with no edit here."""
 from __future__ import annotations
 
 import dataclasses
-import importlib
 import importlib.util
 import json
 import sys
@@ -50,6 +52,7 @@ class Cell:
     end_to_end: List[Metric]
     per_layer: List[Metric]
     run_seconds: int
+    bench_dir: Path = BENCH_DIR
 
 
 def read_json(path: Path) -> dict:
@@ -81,7 +84,7 @@ def load_cell(root: Path, name: str, bench_dir: Path = BENCH_DIR) -> Cell:
                  if m.reported_in(name, bench)],
                 [m for m in _metrics(bench, "per_layer")
                  if m.reported_in(name, bench)],
-                int(bench["run_seconds"]))
+                int(bench["run_seconds"]), bench_dir)
 
 
 def _load_file(kind: str, name: str, bench_dir: Path):
@@ -104,6 +107,34 @@ def metric_reader(name: str, bench_dir: Path = BENCH_DIR):
     return _load_file("metrics", name, bench_dir)
 
 
-def reference(conf: dict):
-    """The plain reference that the configuration names."""
-    return importlib.import_module(f"reference.{conf['reference']}")
+def reference(conf: dict, bench_dir: Path = BENCH_DIR):
+    """``portbench/reference/<reference>.py``, the plain reference that the
+    configuration names: ``leaves(conf, vocab_rows)``, ``logits`` and
+    ``reduced(conf)``, its cut to a size the CPU tests hold."""
+    return _load_file("reference", conf["reference"], bench_dir)
+
+
+LAYER_KEYS = {"mixer", "ffn", "window"}
+
+
+def stages(port: dict) -> List[tuple]:
+    """The ``layers`` of a ``port`` section as (pattern, repeat), a pattern
+    being a list of {"mixer", "ffn"[, "window"]}.  An entry is one layer
+    kind, ``{"mixer", "ffn"[, "window"], "repeat"}``, or a period of
+    several, ``{"pattern": [...], "repeat"}``.  A key it does not know
+    raises."""
+    out = []
+    for entry in port["layers"]:
+        if "pattern" in entry:
+            pattern, unknown = entry["pattern"], set(entry) - {"pattern",
+                                                               "repeat"}
+        else:
+            pattern = [{k: v for k, v in entry.items() if k != "repeat"}]
+            unknown = set()
+        for blk in pattern:
+            unknown |= set(blk) - LAYER_KEYS
+        if unknown:
+            raise ValueError(f"layers entry {entry}: unknown keys "
+                             f"{sorted(unknown)}")
+        out.append((pattern, int(entry["repeat"])))
+    return out

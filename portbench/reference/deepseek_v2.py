@@ -11,6 +11,7 @@ are the same model.  Float32, every sequence's tokens together through the
 weight products, one sequence at a time through attention."""
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -20,7 +21,8 @@ from reference import common as C
 
 def leaves(conf, vocab_rows: int):
     """(program parameter name, shape, init std, kind), as
-    ``dense_decoder.leaves``; the router is drawn in float32."""
+    ``dense_decoder.leaves``; the router comes in float32, the type the
+    port holds it in."""
     d, H = conf["hidden_size"], conf["num_attention_heads"]
     r, rope = conf["kv_lora_rank"], conf["qk_rope_head_dim"]
     nope, vd = conf["qk_nope_head_dim"], conf["v_head_dim"]
@@ -54,6 +56,29 @@ def leaves(conf, vocab_rows: int):
                     (m + "shared_w_up", (d, fs), d ** -0.5, "weight"),
                     (m + "shared_w_down", (fs, d), fs ** -0.5, "weight")]
     return out
+
+
+def reduced(conf):
+    """``conf`` at a size the CPU tests hold: the same architecture (a
+    dense layer, then MoE layers) at small widths, the reference's keys
+    and the port's section cut alike."""
+    c = copy.deepcopy(conf)
+    c["port"].update(d_model=64, num_heads=4, num_kv_heads=4, head_dim=48,
+                     d_ff=128, vocab_size=256, num_layers=3,
+                     layers=[{"mixer": "mla", "ffn": "dense", "repeat": 1},
+                             {"mixer": "mla", "ffn": "moe", "repeat": 2}],
+                     moe=dict(num_experts=8, top_k=2, d_ff_expert=32,
+                              num_shared=2, d_ff_shared=64,
+                              capacity_factor=2.0),
+                     mla=dict(kv_lora_rank=32, rope_head_dim=16,
+                              nope_head_dim=32, v_head_dim=32))
+    c.update(hidden_size=64, num_attention_heads=4, num_key_value_heads=4,
+             intermediate_size=128, vocab_size=256, num_hidden_layers=3,
+             n_routed_experts=8, num_experts_per_tok=2,
+             moe_intermediate_size=32, n_shared_experts=2,
+             kv_lora_rank=32, qk_rope_head_dim=16, qk_nope_head_dim=32,
+             v_head_dim=32)
+    return c
 
 
 def capacity(T: int, K: int, E: int, cf: float) -> int:

@@ -6,6 +6,7 @@ embeddings.  Float32, one sequence at a time through attention, every
 sequence's tokens together through the weight products, layer by layer."""
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -37,6 +38,19 @@ def leaves(conf, vocab_rows: int):
                 (f + "w_up", (d, ff), d ** -0.5, "weight"),
                 (f + "w_down", (ff, d), ff ** -0.5, "weight")]
     return out
+
+
+def reduced(conf):
+    """``conf`` at a size the CPU tests hold: the same architecture at
+    small widths, the reference's keys and the port's section cut alike."""
+    c = copy.deepcopy(conf)
+    c["port"].update(d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
+                     d_ff=128, vocab_size=250, num_layers=2,
+                     layers=[{"mixer": "full", "ffn": "dense", "repeat": 2}])
+    c.update(hidden_size=64, num_attention_heads=4, num_key_value_heads=4,
+             intermediate_size=128, vocab_size=250, num_hidden_layers=2,
+             dim_model_base=64, scale_depth=2 ** 0.5)
+    return c
 
 
 def logits(conf, W, seqs, arith: C.Arith, stats: dict | None = None):

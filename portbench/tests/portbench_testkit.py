@@ -1,9 +1,12 @@
-"""Helpers of the benchmark's CPU tests: paths, and the cells cut to a
-size the CPU holds (the same files, with every width and the traffic
-shrunk), driven through ``pb.runner.run_cell`` past the look for a card."""
+"""Helpers of the benchmark's CPU tests: paths, and the cells of
+``BENCHMARK.json`` cut to a size the CPU holds (the same files, with every
+width cut by the configuration's own reference, ``reduced(conf)``, and the
+traffic shrunk), driven through ``pb.runner.run_cell`` past the look for a
+card."""
 from __future__ import annotations
 
 import copy
+import json
 import sys
 import time
 from pathlib import Path
@@ -14,50 +17,30 @@ for p in (str(ROOT / "src"), str(BENCH)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-CELLS = ("minicpm-2b.agentic", "deepseek-v2-lite-16b.agentic_saturated",
-         "minicpm-2b.long_session")
+CELLS = tuple(w["name"] for w in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["workloads"])
 
 
-def reduced_config(conf: dict) -> dict:
-    """``conf`` at a CPU size: the same architecture, small widths, the
-    reference's keys and the port's section cut alike."""
-    c = copy.deepcopy(conf)
-    p = c["port"]
-    if "mla" in p:
-        p.update(d_model=64, num_heads=4, num_kv_heads=4, head_dim=48,
-                 d_ff=128, vocab_size=256, num_layers=3,
-                 layers=[{"mixer": "mla", "ffn": "dense", "repeat": 1},
-                         {"mixer": "mla", "ffn": "moe", "repeat": 2}],
-                 moe=dict(num_experts=8, top_k=2, d_ff_expert=32,
-                          num_shared=2, d_ff_shared=64, capacity_factor=2.0),
-                 mla=dict(kv_lora_rank=32, rope_head_dim=16,
-                          nope_head_dim=32, v_head_dim=32))
-        c.update(hidden_size=64, num_attention_heads=4, num_key_value_heads=4,
-                 intermediate_size=128, vocab_size=256, num_hidden_layers=3,
-                 n_routed_experts=8, num_experts_per_tok=2,
-                 moe_intermediate_size=32, n_shared_experts=2,
-                 kv_lora_rank=32, qk_rope_head_dim=16, qk_nope_head_dim=32,
-                 v_head_dim=32)
-    else:
-        p.update(d_model=64, num_heads=4, num_kv_heads=4, head_dim=16,
-                 d_ff=128, vocab_size=250, num_layers=2,
-                 layers=[{"mixer": "full", "ffn": "dense", "repeat": 2}])
-        c.update(hidden_size=64, num_attention_heads=4, num_key_value_heads=4,
-                 intermediate_size=128, vocab_size=250, num_hidden_layers=2,
-                 dim_model_base=64, scale_depth=2 ** 0.5)
+def reduced_config(conf: dict, bench_dir: Path = BENCH) -> dict:
+    """``conf`` at a CPU size: its reference's ``reduced`` cut, served in
+    float32 by two engines of 4 slots of 128 tokens."""
+    from pb import spec
+    c = spec.reference(conf, bench_dir).reduced(conf)
     # float32 at this size: the program then reads a gap of about 0, so
     # a check that fails tells a fault from rounding
-    c["serving"].update(max_batch=4, max_len=128, prefill_chunk=16,
-                        dtype="float32")
+    c["serving"] = dict(c["serving"], max_batch=4, max_len=128,
+                        prefill_chunk=16, dtype="float32")
     return c
 
 
-def reduced_cell(name: str, limit: float = 0.05):
-    """The cell of BENCHMARK.json at a CPU size: reduced config, the mix
-    cut to prompts of 8-60 and outputs of 4-30 tokens, a 1 s warm-up."""
+def reduced_cell(name: str, limit: float = 0.05, root: Path = ROOT,
+                 bench_dir: Path = BENCH):
+    """The cell of ``root``'s BENCHMARK.json at a CPU size: reduced config,
+    the mix cut to prompts of 8-60 and outputs of 4-30 tokens, a 1 s
+    warm-up."""
     from pb import spec
-    cell = spec.load_cell(ROOT, name)
-    cell.config = reduced_config(cell.config)
+    cell = spec.load_cell(root, name, bench_dir)
+    cell.config = reduced_config(cell.config, bench_dir)
     t = copy.deepcopy(cell.traffic)
     t["mix"] = {"kind": "uniform", "input": [8, 60], "output": [4, 30]}
     if t.get("first_round"):
@@ -87,16 +70,24 @@ def run_reduced(name: str, seed: int = 2 ** 31 + 77, seconds: float = 3.0,
 
 def fault_state_unchanged(monkeypatch):
     """The decode step leaves its cache as it found it: the new token's
-    K/V (or latent rows) are never kept."""
+    K/V, latent rows or Mamba states are never kept (every tensor of the
+    step's cache is put back)."""
+    import torch
     import repro_torch.engine.engine as E
     real = E.decode_step
 
+    def tensors(tree):
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in tensors(v)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
     def step(model, tokens, cache):
-        keep = {k: cache[k].clone() for k in ("k_pages", "v_pages", "ckv",
-                                               "kr") if k in cache}
+        keep = [(t, t.clone()) for t in tensors(cache)]
         out = real(model, tokens, cache)
-        for k, v in keep.items():
-            cache[k].copy_(v)
+        for t, v in keep:
+            t.copy_(v)
         return out
     monkeypatch.setattr(E, "decode_step", step)
     return lambda engines: None

@@ -56,6 +56,51 @@ def test_model_step_counts_by_hand():
     assert m.kv_bytes_per_token() == 27 * 576 * 2
 
 
+def _mamba_counts():
+    """d 8, expand 2: di 16 in H = 4 heads of P = 4; G = 1, N = 2, K = 4,
+    chunk 4; two Mamba layers and one full attention layer, dense FFNs."""
+    return Counts.of({"port": {
+        "d_model": 8, "vocab_size": 10, "num_heads": 2, "num_kv_heads": 2,
+        "head_dim": 4, "d_ff": 16, "tie_embeddings": True,
+        "layers": [{"pattern": [{"mixer": "mamba", "ffn": "dense"},
+                                {"mixer": "full", "ffn": "dense"},
+                                {"mixer": "mamba", "ffn": "dense"}],
+                    "repeat": 1}],
+        "ssm": {"d_state": 2, "d_conv": 4, "expand": 2, "head_dim": 4,
+                "n_groups": 1, "chunk": 4}}})
+
+
+def test_ssd_call_counts_by_hand():
+    c = _mamba_counts()
+    # L = 6: a whole chunk of 4 (10 causal pairs) and 2 (3 pairs)
+    f, b = c.ssd_call(6)
+    assert f == 13 * (2 * 1 * 2 + 2 * 4 * 4) + 6 * 4 * 4 * 2 * 4
+    # x (bf16) 6·16, dt (f32) 6·4, B and C (bf16) 2·6·2, y (f32) 6·16,
+    # the final state (f32) 4·4·2
+    assert b == 2 * 96 + 4 * 24 + 2 * 24 + 4 * 96 + 4 * 32
+
+
+def test_mamba_step_and_state_counts_by_hand():
+    c = _mamba_counts()
+    f, b = c.mamba_step(3)
+    assert f == 3 * 5 * 4 * 4 * 2
+    # a slot: the f32 state [4, 4, 2] read and written, 3 rows of the conv
+    # history of x, B and C (16 + 2 + 2 channels, bf16) read
+    assert b == 3 * (2 * 32 * 4 + 3 * 20 * 2)
+    assert c.state_bytes_per_slot() == 2 * (32 * 4 + 3 * 20 * 2)
+    assert c.mamba_layers() == 2 and c.flash_layers() == 1
+    # weights: z, x, B, C, dt projections, the conv, out_proj
+    assert c.mixer_params("mamba") == 8 * (2 * 16 + 2 * 2 + 4) \
+        + 4 * (16 + 2 * 2) + 16 * 8
+    assert c.kv_bytes_per_token() == 2 * 2 * 4 * 2      # one layer keeps KV
+    assert c.pair_flops("mamba") == 0
+    dense = 2 * c.layer_params(True) + 2 * 8 * 10
+    assert c.decode_flops([5, 7]) == 2 * dense + 4 * 2 * 4 * 12 \
+        + 2 * c.mamba_step(2)[0]
+    assert c.prefill_flops(6) == 2 * c.layer_params(True) * 6 + 2 * 8 * 10 \
+        + 4 * 2 * 4 * 21 + 2 * c.ssd_call(6)[0]
+
+
 def _run(tracked, t_w=10.0, t_end=20.0, events=(), steps=()):
     loop = types.SimpleNamespace(tracked=tracked, events=list(events),
                                  steps=list(steps),
