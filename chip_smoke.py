@@ -513,7 +513,7 @@ def paged_case(B: int, dtype_name: str, seed: int, softcap=None):
 
 def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
                      H: int = 32, KV: int = 8, hd: int = 128,
-                     ring: bool = False, softcap=None):
+                     ring: bool = False, softcap=None, scale=None):
     """bf16 paged decode with every row at context ``ctx`` (llama3.1-8b's
     attention shape unless H, KV, hd say another model's), over block
     tables of ``width`` token slots (the engine's fixed width at
@@ -526,7 +526,8 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
     .. b * n + n - 1 in order (``WindowCache``'s identity table), and ctx
     is min(context, ring size).  With ``softcap`` the scores are capped,
     there is no library call, and ``ms_uncapped`` times the full-width
-    call without the cap."""
+    call without the cap.  ``scale`` (a muP config's attention
+    multiplier) scales the scores in place of 1/sqrt(hd)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention.ops import (paged_attention,
@@ -546,15 +547,15 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
     full[:, :used] = order.view(B, used).to(torch.int32)
     cut = full[:, :used].contiguous()
     lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
-    ref = paged_attention_ref(q, kp, vp, cut, lens, softcap)
+    ref = paged_attention_ref(q, kp, vp, cut, lens, softcap, scale)
     if ctx % page:                 # slots past ctx on each row's last page
         k_nan, v_nan = kp.clone(), vp.clone()
         k_nan[cut[:, -1].long(), ctx % page:] = float("nan")
         v_nan[cut[:, -1].long(), ctx % page:] = float("nan")
     else:
         k_nan, v_nan = kp, vp
-    out_full = paged_attention(q, k_nan, v_nan, full, lens, softcap)
-    out_cut = paged_attention(q, k_nan, v_nan, cut, lens, softcap)
+    out_full = paged_attention(q, k_nan, v_nan, full, lens, softcap, scale)
+    out_cut = paged_attention(q, k_nan, v_nan, cut, lens, softcap, scale)
     torch.cuda.synchronize()
     nbytes = 2 * (2 * B * ctx * KV * hd + 2 * B * H * hd) + 4 * (B * used + B)
     b_ms, b_by = bound(nbytes, 4.0 * H * hd * B * ctx, "bfloat16")
@@ -567,20 +568,21 @@ def paged_width_case(B: int, seed: int, ctx: int = 256, width: int = 4096,
     sm = sm_count(q.device)
     row = {
         "B": B, "H": H, "KV": KV, "hd": hd, "dtype": "bfloat16", "ctx": ctx,
-        "ring": ring, "softcap": softcap, "ctx_sum": B * ctx,
+        "ring": ring, "softcap": softcap, "scale": scale, "ctx_sum": B * ctx,
         "table_tokens": {"full": width, "cut": S},
         "splits": {"full": partition(B, KV, n_pages, page, sm),
                    "cut": partition(B, KV, used, page, sm)},
         "max_abs_err": max(max_err(out_full, ref), max_err(out_cut, ref)),
         "ms": time_ms(lambda: paged_attention(q, kp, vp, full, lens,
-                                              softcap)),
+                                              softcap, scale)),
         "ms_cut": time_ms(lambda: paged_attention(q, kp, vp, cut, lens,
-                                                  softcap)),
+                                                  softcap, scale)),
         "plain_ms": time_ms(lambda: paged_attention_ref(q, kp, vp, full,
-                                                        lens, softcap),
+                                                        lens, softcap, scale),
                             iters=5),
         "library_ms": None if softcap else time_ms(
-            lambda: F.scaled_dot_product_attention(*dense, attn_mask=mask)),
+            lambda: F.scaled_dot_product_attention(*dense, attn_mask=mask,
+                                                   scale=scale)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
     if softcap:
@@ -646,6 +648,13 @@ MODEL_ROWS = [
     ("flash_attention", "gemma3-27b window fp32", dict(
         Lq=2000, Lk=2000, H=32, KV=16, hd=128, window=1024,
         dtype_name="float32")),
+    # granite-4.0-h-small: NoPE GQA at its attention multiplier 1/128 (B1 at
+    # 16 decode rows, B2 one-shot), the scan of its Mamba-2 layers (B3)
+    ("paged_attention", "granite-4.0-h-small",
+     dict(B=16, H=32, KV=8, hd=128, ctx=1025, scale=1 / 128)),
+    ("flash_attention", "granite-4.0-h-small",
+     dict(Lq=2000, Lk=2000, H=32, KV=8, hd=128, scale=1 / 128)),
+    ("ssd", "granite-4.0-h-small", dict(L=2048, H=128, P=64, G=1, N=128)),
 ]
 
 
@@ -841,7 +850,7 @@ def library_kernels(fn) -> list:
 
 
 def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
-               KV: int = 8, hd: int = 128, window=None):
+               KV: int = 8, hd: int = 128, window=None, scale=None):
     """llama3.1-8b's prefill attention (H=32 over KV=8, hd=128, unless H,
     KV, hd say another model's; ``window`` for a window layer), timed.
     ``library_ms`` is SDPA with ``is_causal=True`` and no mask where Lq = Lk
@@ -853,7 +862,8 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
     ``library_max_abs_err`` its output's distance from the plain version.
     The bound takes the route's rate: the split-TF32 route does three TF32
     products for each fp32 product (``bound_fma_ms``: the same flops at
-    the fp32 CUDA cores' 67 TFLOP/s)."""
+    the fp32 CUDA cores' 67 TFLOP/s).  ``scale`` (a muP config's attention
+    multiplier) scales the scores in place of 1/sqrt(hd), in every call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (cuda_kernel,
@@ -861,8 +871,8 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B = 1
     q, k, v = _attn_inputs(B, Lq, Lk, H, KV, hd, dtype_name, seed)
-    out = flash_attention(q, k, v, causal=True, window=window)
-    ref = attention_ref(q, k, v, causal=True, window=window)
+    out = flash_attention(q, k, v, causal=True, window=window, scale=scale)
+    ref = attention_ref(q, k, v, causal=True, window=window, scale=scale)
     torch.cuda.synchronize()
     err = max_err(out, ref)
     off = Lk - Lq
@@ -885,12 +895,14 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
         mask &= ki > qi - window
 
     def masked():
-        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              scale=scale)
 
     def library():
         if Lq != Lk or window is not None:
             return masked()
-        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              scale=scale)
     lib_err = max_err(library().transpose(1, 2), ref)
     masked_ms = time_ms(masked)
     library_ms = (masked_ms if Lq != Lk or window is not None
@@ -898,14 +910,15 @@ def flash_case(Lq: int, Lk: int, dtype_name: str, seed: int, H: int = 32,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {
         "Lq": Lq, "Lk": Lk, "H": H, "KV": KV, "hd": hd, "dtype": dtype_name,
-        "window": window, "pairs": pairs,
+        "window": window, "scale": scale, "pairs": pairs,
         "route": route, "max_abs_err": err,
         "schedule": (wgmma_schedule(Lq, Lk, H, B, hd, sms, window)
                      if route == "wgmma" else None),
         "ms": time_ms(lambda: flash_attention(q, k, v, causal=True,
-                                              window=window)),
+                                              window=window, scale=scale)),
         "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True,
-                                                  window=window), iters=3),
+                                                  window=window, scale=scale),
+                            iters=3),
         "library_ms": library_ms, "library_masked_ms": masked_ms,
         "library_kernels": library_kernels(library),
         "library_max_abs_err": lib_err,
@@ -1239,7 +1252,10 @@ def check_softcap(cases: dict):
 # the decode step of minicpm-2b (two engines of 16 slots) and of qwen3-32b
 # (qk_norm, GQA 64/8 at hd 128; 4 slots an engine at full width)
 FUSED_ROWS = [("minicpm-2b", 16, 2304, 36, 36, 64, 5760, False, "silu"),
-              ("qwen3-32b", 4, 5120, 64, 8, 128, 25600, True, "silu")]
+              ("qwen3-32b", 4, 5120, 64, 8, 128, 25600, True, "silu"),
+              # NoPE (no rotation) and the residual multiplier 0.22
+              ("granite-4.0-h-small", 16, 4096, 32, 8, 128, 768, False,
+               "silu")]
 # (B, d, H, KV, hd, qk_norm, act, ring, page, dtype_name) of the untimed
 # fused-glue branches: head dims 16-256, qk_norm, tanh-gelu, rows (d) and
 # sizes (B x d_ff) that take no 16-byte vectors, window rings before and
@@ -1309,11 +1325,14 @@ def _fused_inputs(B, d, H, KV, hd, qk_norm, ring, page, dtype_name, seed,
 
 
 def fused_case(B, d, H, KV, hd, qk_norm, act, ring, page, dtype_name, seed,
-               d_ff=None, n_pages=None, timed=False, theta=1e6, eps=1e-6):
+               d_ff=None, n_pages=None, timed=False, theta=1e6, eps=1e-6,
+               alpha=1.0):
     """``add_rms_norm`` (with and without y), ``rope_kv_write`` and
     ``act_mul`` on the card against their plain chains (``ref.py``) on the
     same inputs: outputs, and the whole page pools after each wrote its
-    slots.  ``timed``: each kernel's and chain's device ms, and bounds."""
+    slots.  ``timed``: each kernel's and chain's device ms, and bounds.
+    ``theta`` None: no rotation (NoPE); ``alpha``: the residual multiplier
+    of ``add_rms_norm``'s y."""
     import torch
     from repro_torch.kernels.decode_fused import ops, ref
     a = _fused_inputs(B, d, H, KV, hd, qk_norm, ring, page, dtype_name, seed,
@@ -1324,9 +1343,10 @@ def fused_case(B, d, H, KV, hd, qk_norm, act, ring, page, dtype_name, seed,
         return lambda: fn(a["q"], a["k"], a["v"], a["lens"], a["tables"], kp,
                           vp, theta, a["q_norm"], a["k_norm"], eps, ring)
     runs = {
-        "add_rms_norm": (lambda: ops.add_rms_norm(a["x"], a["y"], a["w"], eps),
+        "add_rms_norm": (lambda: ops.add_rms_norm(a["x"], a["y"], a["w"], eps,
+                                                  alpha),
                          lambda: ref.add_rms_norm_ref(a["x"], a["y"], a["w"],
-                                                      eps)),
+                                                      eps, alpha)),
         "rms_norm": (lambda: ops.add_rms_norm(a["x"], None, a["w"], eps),
                      lambda: ref.add_rms_norm_ref(a["x"], None, a["w"], eps)),
         "rope_kv_write": (rope(ops.rope_kv_write, *pools[0]),
@@ -1351,6 +1371,7 @@ def fused_case(B, d, H, KV, hd, qk_norm, act, ring, page, dtype_name, seed,
             pairs += list(zip(pools[0], pools[1]))
         row = {"name": name, "B": B, "d": d, "H": H, "KV": KV, "hd": hd,
                "qk_norm": qk_norm, "act": act, "ring": ring, "page": page,
+               "theta": theta, "alpha": alpha,
                "dtype": dtype_name, "d_ff": a["g"].shape[-1],
                **_fused_err(pairs, dtype_name)}
         if timed:
@@ -1437,7 +1458,8 @@ def check_decode_fused(cases: dict, card: str):
         cfg = get_config(arch)
         for r in fused_case(B, d, H, KV, hd, qk, act, None, 16, "bfloat16",
                             seed=800 + i, d_ff=d_ff, n_pages=256, timed=True,
-                            theta=cfg.rope_theta, eps=cfg.norm_eps):
+                            theta=cfg.rope_theta if cfg.rotary else None,
+                            eps=cfg.norm_eps, alpha=cfg.residual_multiplier):
             r = {"model": arch, **r}
             emit({"phase": "decode_fused", **r})
             cases.setdefault("fused_rows", []).append(r)

@@ -7,7 +7,12 @@ gemma3-27b and gemma3-12b, the window + MoE mixtral-8x22b, the
 attention-free Mamba-2 model, the MLA + MoE deepseek-v2-lite-16b and the
 mamba/attention/MoE hybrid jamba-v0.1-52b; and the dry run's cell grid
 (``ASSIGNED_ARCHS``, ``LONG_CONTEXT_ARCHS``, ``shape_applicable``,
-``assigned_cells``: :28-61)."""
+``assigned_cells``: :28-61).
+
+``get_config`` also resolves the port's own configurations
+(``PORT_ONLY_ARCHS``: granite-4.0-h-small, NoPE attention and the muP
+scalars, which the JAX package lacks); ``ALL_ARCHS`` stays the JAX
+package's list, which the tests that compare with it iterate."""
 from __future__ import annotations
 
 import importlib
@@ -33,6 +38,11 @@ _REGISTRY = {
 
 ALL_ARCHS = tuple(_REGISTRY)
 
+# configurations of the port alone, with no counterpart in the JAX package
+PORT_ONLY_ARCHS = {
+    "granite-4.0-h-small": "granite4_h_small",
+}
+
 # the dry run's grid (``repro/configs/__init__.py:28-61``), in the
 # reference's order, which ``_REGISTRY`` above does not keep
 ASSIGNED_ARCHS = ("gemma3-27b", "minicpm-2b", "gemma3-12b", "qwen3-32b",
@@ -49,11 +59,11 @@ LONG_CONTEXT_ARCHS = frozenset({
 
 
 def get_config(name: str) -> ModelConfig:
-    if name not in _REGISTRY:
+    module = _REGISTRY.get(name) or PORT_ONLY_ARCHS.get(name)
+    if module is None:
         raise KeyError(f"arch {name!r} is not ported; supported: "
-                       f"{sorted(_REGISTRY)}")
-    return importlib.import_module(
-        f"repro_torch.configs.{_REGISTRY[name]}").CONFIG
+                       f"{sorted(_REGISTRY) + sorted(PORT_ONLY_ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 
 
 def shape_applicable(arch: str, shape: str) -> bool:
@@ -71,7 +81,8 @@ def assigned_cells(include_skipped: bool = False):
                 yield arch, shape
 
 
-__all__ = ["ALL_ARCHS", "ASSIGNED_ARCHS", "LONG_CONTEXT_ARCHS", "SHAPES",
+__all__ = ["ALL_ARCHS", "ASSIGNED_ARCHS", "LONG_CONTEXT_ARCHS",
+           "PORT_ONLY_ARCHS", "SHAPES",
            "BlockSpec", "ModelConfig", "ShapeSpec", "Stage", "assigned_cells",
            "get_config", "reduce_config", "shape_applicable",
            "uniform_stage"]

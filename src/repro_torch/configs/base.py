@@ -5,8 +5,9 @@ A copy of ``BlockSpec``, ``Stage``, the sub-configs, ``ModelConfig``
 ``local_global_stages``, ``ShapeSpec``, ``SHAPES`` and ``reduce_config``
 from the JAX package (``repro/configs/base.py:25-276``).  The port keeps
 its own copy so that it imports nothing of ``repro``; the tests hold the
-two copies to the same fields.  Malformed specs raise ``ValueError`` where the JAX copy
-asserts.
+two copies to the same fields, but for the port's own: NoPE and the muP
+scalars of ``ModelConfig``, which the JAX package lacks.  Malformed specs
+raise ``ValueError`` where the JAX copy asserts.
 """
 from __future__ import annotations
 
@@ -103,12 +104,40 @@ class ModelConfig:
     norm_eps: float = 1e-6
     lr_schedule: str = "cosine"
     source: str = ""
+    # port-only fields (the JAX package has none of them): no rotary
+    # embedding ("nope"), and the muP scalars of granite-4.0-h: the
+    # embedding times ``embedding_multiplier``, each mixer's and FFN's
+    # output times ``residual_multiplier`` before it joins the residual,
+    # attention scores times ``attention_multiplier`` (None: head_dim **
+    # -0.5) and the logits divided by ``logits_scaling``
+    position_embedding: str = "rope"
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    logits_scaling: float = 1.0
 
     def __post_init__(self):
         got = sum(s.num_layers for s in self.stages)
         if got != self.num_layers:
             raise ValueError(f"{self.name}: stages cover {got} layers, "
                              f"config says {self.num_layers}")
+        if self.position_embedding not in ("rope", "nope"):
+            raise ValueError(f"{self.name}: position_embedding "
+                             f"{self.position_embedding!r} is neither "
+                             f"'rope' nor 'nope'")
+        for field in ("embedding_multiplier", "residual_multiplier",
+                      "attention_multiplier", "logits_scaling"):
+            v = getattr(self, field)
+            if v is None and field == "attention_multiplier":
+                continue
+            if not (isinstance(v, (int, float)) and 0 < v < float("inf")):
+                raise ValueError(f"{self.name}: {field} must be a positive "
+                                 f"finite number, got {v!r}")
+
+    @property
+    def rotary(self) -> bool:
+        """Whether attention rotates q and k (RoPE)."""
+        return self.position_embedding == "rope"
 
     @property
     def attn_q_dim(self) -> int:

@@ -61,7 +61,10 @@ events deque.  Deliberate differences:
   ``prefill`` event's dt; under it one ``prefill.call`` (rid, ``tokens``)
   a one-shot prefill or chunk call, a chunk that ends without a
   synchronise closing at the engine's next one (or its next chunk's
-  start); and ``decode`` (``rows``, and ``pages`` in use of the ``pool``
+  start), and, in a one-shot prefill of a config with mamba layers, one
+  ``prefill.state`` (rid, ``bytes``: the conv history and SSM state
+  written) around ``SSMStateCache.write``, no synchronise of its own;
+  and ``decode`` (``rows``, and ``pages`` in use of the ``pool``
   where the engine has pages) from the ``decode`` event's first clock
   read to the end of its token bookkeeping, tiled by ``decode.fill``
   (``cache.extend``, ``_fill_inputs``), ``decode.launch`` (the replay),
@@ -428,13 +431,17 @@ class InferenceEngine:
                 span = self._start_prefill(req, t0)
                 call = self.trace.open("prefill.call", t0, req.rid, span)
                 n = len(req.tokens)
-                self._prefill_into_slot(i, req)
+                self._prefill_into_slot(i, req, call)
                 t1 = self._clock()
                 self.trace.close(call, t1, tokens=n)
                 self.trace.close(span, t1)
                 self.events.append(("prefill", req.prompt_len, t1 - t0))
 
-    def _prefill_into_slot(self, slot: int, req: EngineRequest):
+    def _prefill_into_slot(self, slot: int, req: EngineRequest,
+                           call: Optional[Span] = None):
+        """Prefill ``req`` in one shot into ``slot``; ``call``, its
+        ``prefill.call`` span, holds the ``prefill.state`` span of the
+        mamba states' write."""
         if self.ctx.enabled:
             logits, states = prefill(
                 self.params, shd.place_batch(self._tokens(req.tokens)[None],
@@ -461,7 +468,11 @@ class InferenceEngine:
         if self.latent is not None:
             self.latent.write(slot, mla)
         if self.states is not None:
+            span = self.trace.open("prefill.state", time.perf_counter(),
+                                   req.rid, call)
             self.states.write(slot, ssm)
+            self.trace.close(span, time.perf_counter(),
+                             bytes=self.states.slot_bytes)
         req.tokens.append(self._greedy(logits)[0])
         self.slots[slot] = req
 

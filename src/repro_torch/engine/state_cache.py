@@ -41,6 +41,13 @@ class SSMStateCache:
         self.ssm = zeros(n, slots, s.n_heads(cfg.d_model), s.head_dim,
                          s.d_state, dt=torch.float32)
 
+    @property
+    def slot_bytes(self) -> int:
+        """Bytes one slot holds over every mamba layer: its conv history
+        and its SSM state, what ``write`` stores."""
+        bufs = (*self.conv.values(), self.ssm)
+        return sum(b[:, 0].numel() * b.element_size() for b in bufs)
+
     def decode_view(self) -> dict:
         """The mamba layers' part of ``models.decode_step``'s cache: every
         slot, row b of the decode batch being slot b."""

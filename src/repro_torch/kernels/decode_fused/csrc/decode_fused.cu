@@ -10,13 +10,16 @@
 //
 // Computes (ref.py holds the plain chains, which each kernel rounds as):
 //   * add_rms_norm_kernel: for each row of x [rows, d] (and y, optional),
-//     s = x + y rounded to the activations' type, then
+//     s = x + alpha * y formed in fp32 and rounded once to the activations'
+//     type (alpha, the residual multiplier, is 1 but for muP configs; a
+//     product by 1 is exact, so alpha 1 gives x + y's bits), then
 //     out = s * rsqrt(mean(s^2) + eps) * (1 + w) in fp32, rounded.
 //   * rope_kv_write_kernel: for one token per sequence, q [B, H, hd] and
 //     k, v [B, KV, hd] (the projections' outputs): q_norm / k_norm where
 //     given (rms_norm over hd, rounded), then the half-split rotary
 //     embedding at position pos (angles float(pos) * freq[i] in fp32,
-//     full-precision sincosf), rounded; writes the rotated q to q_out and
+//     full-precision sincosf), rounded, or no rotation at all where the
+//     frequency table is null (NoPE); writes the rotated q to q_out and
 //     the rotated k and v into their cache slot.  Paged layers (ring = 0):
 //     pos = context_lens[b] - 1, slot row pos.  Window rings (ring = S):
 //     pos = max(context_lens[b] - 1, 0), slot row pos % S.  The row lies in
@@ -127,7 +130,7 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kNormThreads)
 add_rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ y,
                     const T* __restrict__ w, T* sum, T* __restrict__ out,
-                    int d, float eps) {
+                    int d, float eps, float alpha) {
   const size_t base = (size_t)blockIdx.x * d;
   x += base;
   out += base;
@@ -143,7 +146,8 @@ add_rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ y,
       float b[V];
       load_vec<V>(y + i, b);
 #pragma unroll
-      for (int k = 0; k < V; ++k) a[k] = round_as(__fadd_rn(a[k], b[k]), T());
+      for (int k = 0; k < V; ++k)
+        a[k] = round_as(__fadd_rn(a[k], __fmul_rn(alpha, b[k])), T());
       store_vec<V>(sum + i, a);
     }
 #pragma unroll
@@ -169,7 +173,7 @@ struct RopeArgs {
   const void* v;
   const void* q_norm;   // [hd] or null
   const void* k_norm;   // [hd] or null
-  const float* freq;    // [hd / 2]
+  const float* freq;    // [hd / 2], or null: no rotation
   const int* context_lens;
   const int* tables;
   void* q_out;
@@ -235,6 +239,17 @@ rope_kv_write_kernel(RopeArgs a) {
     T* vd = static_cast<T*>(a.v_pages) + off;
     for (int j = lane; j < a.hd; j += 32) vd[j] = vs[j];
   }
+  if (a.freq == nullptr) {   // NoPE: the (normed) head as it is
+#pragma unroll
+    for (int t = 0; t < kMaxPairs; ++t) {
+      const int j = lane + 32 * t;
+      if (j < half) {
+        repro::store(dst + j, x1[t]);
+        repro::store(dst + j + half, x2[t]);
+      }
+    }
+    return;
+  }
   const float p = (float)pos;
 #pragma unroll
   for (int t = 0; t < kMaxPairs; ++t) {
@@ -281,12 +296,12 @@ act_mul_kernel(const T* __restrict__ g, const T* __restrict__ u,
 
 template <typename T, int V>
 int launch_add_rms_norm(const void* x, const void* y, const void* w, void* sum,
-                        void* out, int rows, int d, float eps,
+                        void* out, int rows, int d, float eps, float alpha,
                         cudaStream_t stream) {
   add_rms_norm_kernel<T, V><<<rows, kNormThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const T*>(w), static_cast<T*>(sum), static_cast<T*>(out), d,
-      eps);
+      eps, alpha);
   return (int)cudaGetLastError();
 }
 
@@ -303,19 +318,24 @@ int launch_act_mul(const void* g, const void* u, void* out, long long n,
 
 }  // namespace
 
-// vec: 1 where d and the pointers allow 16-byte vectors, else 0.
+// vec: 1 where d and the pointers allow 16-byte vectors, else 0.  alpha:
+// the residual multiplier of y.
 extern "C" int add_rms_norm_launch(const void* x, const void* y, const void* w,
                                    void* sum, void* out, int rows, int d,
-                                   float eps, int vec, int is_bf16,
-                                   void* stream) {
+                                   float eps, float alpha, int vec,
+                                   int is_bf16, void* stream) {
   if (rows < 1 || d < 1 || (vec && d % (is_bf16 ? 8 : 4)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return vec ? launch_add_rms_norm<bf16, 8>(x, y, w, sum, out, rows, d, eps, s)
-               : launch_add_rms_norm<bf16, 1>(x, y, w, sum, out, rows, d, eps, s);
-  return vec ? launch_add_rms_norm<float, 4>(x, y, w, sum, out, rows, d, eps, s)
-             : launch_add_rms_norm<float, 1>(x, y, w, sum, out, rows, d, eps, s);
+    return vec ? launch_add_rms_norm<bf16, 8>(x, y, w, sum, out, rows, d, eps,
+                                              alpha, s)
+               : launch_add_rms_norm<bf16, 1>(x, y, w, sum, out, rows, d, eps,
+                                              alpha, s);
+  return vec ? launch_add_rms_norm<float, 4>(x, y, w, sum, out, rows, d, eps,
+                                             alpha, s)
+             : launch_add_rms_norm<float, 1>(x, y, w, sum, out, rows, d, eps,
+                                             alpha, s);
 }
 
 extern "C" int rope_kv_write_launch(const void* q, const void* k,

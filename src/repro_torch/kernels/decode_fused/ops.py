@@ -5,10 +5,13 @@ Three kernels take the place of the PyTorch elementwise, reduction and
 index kernels between a dense layer's GEMMs and the paged attention kernel
 (no TPU kernel: XLA fuses this glue inside the JAX package's jitted step):
 
-* :func:`add_rms_norm`: the residual add folded into the next RMSNorm;
+* :func:`add_rms_norm`: the residual add, the block's output times a
+  residual multiplier ``alpha`` (muP; 1 by default), folded into the next
+  RMSNorm;
 * :func:`rope_kv_write`: qk_norm where the config has it, the rotary
-  embedding of q and k at each row's position, and the new K/V's store into
-  its page or ring slot, the position and slot formed on the device;
+  embedding of q and k at each row's position (none for a NoPE config,
+  ``theta`` None), and the new K/V's store into its page or ring slot, the
+  position and slot formed on the device;
 * :func:`act_mul`: the gated FFN's ``act(g) * u``.
 
 A CUDA tensor in bf16 or fp32 launches the kernel; a CPU tensor takes the
@@ -79,9 +82,10 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def add_rms_norm(x, y, w, eps: float):
+def add_rms_norm(x, y, w, eps: float, alpha: float = 1.0):
     """x, y: [..., d] (y None: no add); w: [d] -> (s, rms_norm(s, w, eps))
-    with s = x + y rounded to x's dtype (x itself where y is None)."""
+    with s = x + alpha * y formed in fp32 and rounded once to x's dtype (x
+    itself where y is None)."""
     ins = (x, w) if y is None else (x, y, w)
     _same("add_rms_norm", *ins)
     d = x.shape[-1]
@@ -92,7 +96,7 @@ def add_rms_norm(x, y, w, eps: float):
                          f"{tuple(w.shape)}")
     _build.refuse_grad("add_rms_norm", *ins)
     if x.device.type == "cpu":
-        return add_rms_norm_ref(x, y, w, eps)
+        return add_rms_norm_ref(x, y, w, eps, alpha)
     s = x if y is None else torch.empty_like(x)
     out = torch.empty_like(x)
     if x.device.type == "meta":
@@ -107,10 +111,11 @@ def add_rms_norm(x, y, w, eps: float):
     if rows == 0:
         return s, out
     fn = _build.entry("decode_fused", "add_rms_norm_launch",
-                      [_P] * 5 + [_I] * 2 + [ctypes.c_float] + [_I] * 2 + [_P])
+                      [_P] * 5 + [_I] * 2 + [ctypes.c_float] * 2 + [_I] * 2
+                      + [_P])
     err = fn(x.data_ptr(), None if y is None else y.data_ptr(), w.data_ptr(),
              None if y is None else s.data_ptr(), out.data_ptr(), rows, d,
-             float(eps), _vec(d, *ins, s, out),
+             float(eps), float(alpha), _vec(d, *ins, s, out),
              int(x.dtype == torch.bfloat16), _stream(x))
     _build.check("decode_fused", err)
     add_rms_norm.launches += 1
@@ -159,13 +164,14 @@ def _check_rope(q, k, v, context_lens, tables, k_pages, v_pages, q_norm,
 
 
 def rope_kv_write(q, k, v, context_lens, tables, k_pages, v_pages,
-                  theta: float, q_norm=None, k_norm=None, eps: float = 1e-6,
-                  ring: Optional[int] = None):
+                  theta: Optional[float], q_norm=None, k_norm=None,
+                  eps: float = 1e-6, ring: Optional[int] = None):
     """q [B, H, hd], k/v [B, KV, hd] (one token a row); context_lens int32
     [B] counts the new token; tables int32 [B, n] name each row's pages of
     k/v_pages [P, page, KV, hd].  Applies ``q_norm``/``k_norm`` [hd] where
-    given, rotates q and k at the row's position, stores k and v into the
-    row's slot in place and returns the rotated q [B, H, hd].  ``ring``
+    given, rotates q and k at the row's position (``theta`` None: no
+    rotation, NoPE), stores k and v into the row's slot in place and
+    returns the (rotated) q [B, H, hd].  ``ring``
     None: paged rows, position and slot row ``context_lens - 1``; ``ring``
     S: a window ring of S rows, position ``max(context_lens - 1, 0)``, slot
     row ``position % S``."""
@@ -181,7 +187,8 @@ def rope_kv_write(q, k, v, context_lens, tables, k_pages, v_pages,
     if q.device.type == "meta":
         elems = B * (H + KV) * hd
         _build.record_cost(
-            "rope_kv_write", (3.0 + 4.0 * (q_norm is not None)) * elems,
+            "rope_kv_write", (3.0 * (theta is not None)
+                              + 4.0 * (q_norm is not None)) * elems,
             q.element_size() * (2 * elems + 2 * B * KV * hd
                                 + 2 * hd * (q_norm is not None))
             + 4 * (hd // 2 + 2 * B))
@@ -190,12 +197,13 @@ def rope_kv_write(q, k, v, context_lens, tables, k_pages, v_pages,
         raise ValueError(f"unsupported device {q.device}")
     if B == 0:
         return out
-    freq = rope_table(theta, hd, q.device)
+    freq = None if theta is None else rope_table(theta, hd, q.device)
     fn = _build.entry("decode_fused", "rope_kv_write_launch",
                       [_P] * 11 + [_I] * 7 + [ctypes.c_float, _I, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if q_norm is None else q_norm.data_ptr(),
-             None if k_norm is None else k_norm.data_ptr(), freq.data_ptr(),
+             None if k_norm is None else k_norm.data_ptr(),
+             None if freq is None else freq.data_ptr(),
              context_lens.data_ptr(), tables.data_ptr(), out.data_ptr(),
              k_pages.data_ptr(), v_pages.data_ptr(), B, H, KV, hd,
              k_pages.shape[1], tables.stride(0), ring or 0, float(eps),

@@ -13,21 +13,23 @@ from __future__ import annotations
 from typing import Optional
 
 
-def add_rms_norm_ref(x, y, w, eps: float):
-    """(x + y, rms_norm(x + y, w, eps)); y None: (x, rms_norm(x, w, eps))."""
-    from repro_torch.models.layers import rms_norm
-    s = x if y is None else x + y
+def add_rms_norm_ref(x, y, w, eps: float, alpha: float = 1.0):
+    """(s, rms_norm(s, w, eps)) with s = x + alpha * y (``layers.
+    residual_add``: x + y where alpha is 1, else formed in fp32 and rounded
+    once); y None: (x, rms_norm(x, w, eps))."""
+    from repro_torch.models.layers import residual_add, rms_norm
+    s = x if y is None else residual_add(x, y, alpha)
     return s, rms_norm(s, w, eps)
 
 
 def rope_kv_write_ref(q, k, v, context_lens, tables, k_pages, v_pages,
-                      theta: float, q_norm=None, k_norm=None,
+                      theta: Optional[float], q_norm=None, k_norm=None,
                       eps: float = 1e-6, ring: Optional[int] = None):
     """q [B, H, hd], k/v [B, KV, hd]: the one-token projections.  Norms q
     and k where ``q_norm``/``k_norm`` are given, rotates both at each row's
-    position, stores k and v into the row's slot of k/v_pages [P, page,
-    KV, hd] in place (page ``tables[b, row // page]``, offset ``row %
-    page``) and returns the rotated q."""
+    position (not at all where ``theta`` is None), stores k and v into the
+    row's slot of k/v_pages [P, page, KV, hd] in place (page ``tables[b,
+    row // page]``, offset ``row % page``) and returns q."""
     from repro_torch.models.layers import rms_norm, rope
     page = k_pages.shape[1]
     pos = context_lens.long() - 1
@@ -38,8 +40,9 @@ def rope_kv_write_ref(q, k, v, context_lens, tables, k_pages, v_pages,
     if q_norm is not None:
         q = rms_norm(q, q_norm, eps)
         k = rms_norm(k, k_norm, eps)
-    q = rope(q[:, None], pos[:, None], theta)[:, 0]
-    k = rope(k[:, None], pos[:, None], theta)[:, 0]
+    if theta is not None:
+        q = rope(q[:, None], pos[:, None], theta)[:, 0]
+        k = rope(k[:, None], pos[:, None], theta)[:, 0]
     idx = tables.long().gather(1, (row // page)[:, None])[:, 0] * page \
         + row % page
     k_pages.view(-1, *k_pages.shape[2:])[idx] = k

@@ -9,7 +9,8 @@
 //   position i + Lk - Lq: that one rule carries both one-shot prefill
 //   (Lq = Lk) and a prefill chunk attending over its staged prefix
 //   (Lk = pos0 + C).  Optional causal mask, sliding window (ki > qi - window)
-//   and tanh softcap after the 1/sqrt(hd) scale.  Query head h reads KV head
+//   and tanh softcap after the scale (1/sqrt(hd), or the caller's: a muP
+//   config's attention multiplier).  Query head h reads KV head
 //   h / G.  Online softmax in fp32; fully masked key tiles are never visited.
 //   Unlike the Pallas kernel, Lq and Lk may be any length: the ragged edges
 //   of both are masked here.
@@ -295,7 +296,7 @@ template <typename T, int NJ>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Lq, int Lk, int H, int KV, int hd, long long sqb,
            long long skb, long long svb, long long sob, int causal,
-           int window, float softcap, cudaStream_t stream) {
+           int window, float softcap, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)kBQ * (hd + 1) + (size_t)kBQ * (kBK + 1));
   cudaError_t e = cudaFuncSetAttribute(
@@ -306,7 +307,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_kernel<T, NJ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H, KV, hd, sqb,
-      skb, svb, sob, causal, window, softcap, 1.0f / sqrtf((float)hd));
+      skb, svb, sob, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -314,17 +315,17 @@ template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
               int Lq, int Lk, int H, int KV, int hd, long long sqb,
               long long skb, long long svb, long long sob, int causal,
-              int window, float softcap, cudaStream_t stream) {
+              int window, float softcap, float scale, cudaStream_t stream) {
   if (hd <= 64)
     return launch<T, 4>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb, sob,
-                        causal, window, softcap, stream);
+                        causal, window, softcap, scale, stream);
   if (hd <= 128)
     return launch<T, 8>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb, sob,
-                        causal, window, softcap, stream);
+                        causal, window, softcap, scale, stream);
   if constexpr (sizeof(T) == 4) {  // bf16 at hd 256 runs on wgmma
     if (hd == 256)
       return launch<T, 16>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb,
-                           sob, causal, window, softcap, stream);
+                           sob, causal, window, softcap, scale, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1306,7 +1307,8 @@ template <int HD>
 int launch_tf32x3(const void* q, const void* k, const void* v, void* o,
                   int B, int Lq, int Lk, int H, int KV, long long sqb,
                   long long skb, long long svb, long long sob, int causal,
-                  int window, float softcap, cudaStream_t stream) {
+                  int window, float softcap, float scale,
+                  cudaStream_t stream) {
   const int smem = TCfg<HD>::kSmem;
   cudaError_t e = cudaFuncSetAttribute(
       flash_tf32x3_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1316,7 +1318,7 @@ int launch_tf32x3(const void* q, const void* k, const void* v, void* o,
   flash_tf32x3_kernel<HD><<<grid, kTThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Lq, Lk, H, KV, sqb,
-      skb, svb, sob, causal, window, softcap, 1.0f / sqrtf((float)HD));
+      skb, svb, sob, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1369,7 +1371,7 @@ template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int Lq, int Lk, int H, int KV, long long sqb, long long skb,
                  long long svb, long long sob, int causal, int window,
-                 float softcap, cudaStream_t stream) {
+                 float softcap, float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int e = make_map(&qm, q, B, Lq, H, HD, sqb, kWBQ);
   if (!e) e = make_map(&km, k, B, Lk, KV, HD, skb, WCfg<HD>::kBK);
@@ -1383,7 +1385,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(H, (Lq + kWBQ - 1) / kWBQ, B);
   flash_wgmma_kernel<HD><<<grid, WCfg<HD>::kThreads, smem, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), sob, Lq, Lk, H, KV, causal,
-      window, softcap, 1.0f / sqrtf((float)HD));
+      window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1402,7 +1404,8 @@ extern "C" int flash_attention_route(int is_bf16, int hd) {
 
 // Batch strides are in elements; inside a sequence q/k/v/o are contiguous
 // [L, heads, hd].  hd: a multiple of 16 up to 128, or 256.  window <= 0
-// means no window, softcap <= 0 no softcap.
+// means no window, softcap <= 0 no softcap, scale <= 0 the scale
+// 1/sqrt(hd).
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Lq,
@@ -1410,15 +1413,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       long long sqb, long long skb,
                                       long long svb, long long sob,
                                       int causal, int window, float softcap,
-                                      int is_bf16, void* stream) {
+                                      float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float sc = scale > 0.f ? scale : 1.0f / sqrtf((float)hd);
   const int route = flash_attention_route(is_bf16, hd);
   if (route == kWgmma) {
     decltype(&launch_wgmma<64>) fn = hd == 64    ? &launch_wgmma<64>
                                      : hd == 128 ? &launch_wgmma<128>
                                                  : &launch_wgmma<256>;
     return fn(q, k, v, o, B, Lq, Lk, H, KV, sqb, skb, svb, sob, causal,
-              window, softcap, s);
+              window, softcap, sc, s);
   }
   if (route == kTf32x3) {
     decltype(&launch_tf32x3<64>) fn = hd == 16   ? &launch_tf32x3<16>
@@ -1426,11 +1430,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       : hd == 64 ? &launch_tf32x3<64>
                                                  : &launch_tf32x3<128>;
     return fn(q, k, v, o, B, Lq, Lk, H, KV, sqb, skb, svb, sob, causal,
-              window, softcap, s);
+              window, softcap, sc, s);
   }
   if (is_bf16)
     return launch_hd<__nv_bfloat16>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb,
-                                    skb, svb, sob, causal, window, softcap, s);
+                                    skb, svb, sob, causal, window, softcap,
+                                    sc, s);
   return launch_hd<float>(q, k, v, o, B, Lq, Lk, H, KV, hd, sqb, skb, svb,
-                          sob, causal, window, softcap, s);
+                          sob, causal, window, softcap, sc, s);
 }

@@ -13,7 +13,9 @@ part, which keeps fp32's accuracy); the rest on the fp32 FMA kernel: fp32
 at 48, 80, 96, 112 and 256, bf16 at 16, 32, 48, 80, 96 and 112.  A launch
 that fails raises; no call retreats to another kernel.  Head dims:
 multiples of 16 up to 128, and 256.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches.  ``scale`` replaces
+the scores' 1/sqrt(hd) (a muP config's attention multiplier); left None,
+the kernels compute 1/sqrt(hd) as they always have.
 Forward only: with grad mode on, an input that requires grad raises
 (``_build.refuse_grad``), on the CPU too.  On meta tensors (the dry run)
 the wrapper computes nothing: it returns an empty output and reports the
@@ -32,10 +34,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 4 + [_I, _I, ctypes.c_float, _I, _P]
+_ARGTYPES = [_P] * 4 + [_I] * 6 + [_L] * 4 + [_I, _I] + [ctypes.c_float] * 2 \
+    + [_I, _P]
 
 
-def _check(q, k, v, window, softcap):
+def _check(q, k, v, window, softcap, scale=None):
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"want q [B,Lq,H,hd], k/v [B,Lk,KV,hd]; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -62,20 +65,23 @@ def _check(q, k, v, window, softcap):
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
+    if scale is not None and not 0 < scale < float("inf"):
+        raise ValueError(f"scale must be positive and finite, got {scale}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
-                    softcap: Optional[float] = None):
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None):
     """q: [B, Lq, H, hd]; k/v: [B, Lk, KV, hd] -> [B, Lq, H, hd] in q's
     dtype.  q row i sits at absolute position i + Lk - Lq.  The batch
     stride is free, so k/v may be a prefix ``buf[:, :n]`` of a longer
-    buffer."""
-    _check(q, k, v, window, softcap)
+    buffer.  Scores scaled by ``scale`` (None: 1/sqrt(hd))."""
+    _check(q, k, v, window, softcap, scale)
     _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
+                             softcap=softcap, scale=scale)
     B, Lq, H, hd = q.shape
     Lk, KV = k.shape[1], k.shape[2]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -94,7 +100,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              B, Lq, Lk, H, KV, hd, q.stride(0), k.stride(0), v.stride(0),
              out.stride(0), int(causal), window or 0, float(softcap or 0.0),
-             int(q.dtype == torch.bfloat16),
+             float(scale or 0.0), int(q.dtype == torch.bfloat16),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("flash_attention", err)
     flash_attention.launches += 1

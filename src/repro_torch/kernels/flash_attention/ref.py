@@ -10,14 +10,17 @@ import torch
 
 def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None,
-                  softcap: Optional[float] = None):
+                  softcap: Optional[float] = None,
+                  scale: Optional[float] = None):
     """q: [B, Lq, H, hd]; k/v: [B, Lk, KV, hd] -> [B, Lq, H, hd].  q rows
-    are the tail of k: row i sits at absolute position i + Lk - Lq."""
+    are the tail of k: row i sits at absolute position i + Lk - Lq.
+    Scores scaled by ``scale``, or hd ** -0.5 where it is None."""
     B, Lq, H, hd = q.shape
     Lk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, Lq, KV, G, hd).float()
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * hd ** -0.5
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) \
+        * (hd ** -0.5 if scale is None else scale)
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
     qi = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)

@@ -783,7 +783,8 @@ int launch_merge(const Args& a, void* out) {
 }  // namespace
 
 // Launches both passes on `stream`.  workspace: B * H * n_split * (hd + 2)
-// floats.  softcap <= 0 means no cap.  The splits must be whole 64-token
+// floats.  softcap <= 0 means no cap; scale <= 0 the scale 1/sqrt(hd).
+// The splits must be whole 64-token
 // tiles and cover the table:
 // split_tokens % 64 == 0 and (n_split - 1) * split_tokens < n_pages * page
 // <= n_split * split_tokens.  Returns cudaErrorInvalidValue for a split, a
@@ -797,8 +798,8 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
                                       void* workspace, int B, int H, int KV,
                                       int hd, int page, int n_pages,
                                       int n_split, int split_tokens,
-                                      float softcap, int is_bf16,
-                                      void* stream) {
+                                      float softcap, float scale,
+                                      int is_bf16, void* stream) {
   const long long n_tokens = (long long)n_pages * page;
   if (n_split < 1 || split_tokens <= 0 || split_tokens % kSplitAlign ||
       (long long)(n_split - 1) * split_tokens >= n_tokens ||
@@ -822,8 +823,11 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pages,
   a.n_split = n_split;
   a.split_tokens = split_tokens;
   const bool cap = softcap > 0.f;
-  a.qk_mul = cap ? 1.0f / sqrtf((float)hd) / softcap
-                 : kLog2e / sqrtf((float)hd);
+  if (scale > 0.f)
+    a.qk_mul = cap ? scale / softcap : kLog2e * scale;
+  else
+    a.qk_mul = cap ? 1.0f / sqrtf((float)hd) / softcap
+                   : kLog2e / sqrtf((float)hd);
   a.cap_mul = cap ? softcap * kLog2e : 0.f;
   a.stream = static_cast<cudaStream_t>(stream);
   const int e = launch_pass1(a, is_bf16 != 0);

@@ -14,7 +14,9 @@ cores (mma.sync) and fp32 on the CUDA cores at every one of them.  The
 engine also calls it over window layers' per-slot rings.  ``softcap``
 caps the scaled scores as ``tanh(s / c) * c`` before the mask and the
 softmax (the JAX model's ``_sdpa``), an argument of the same kernels: a
-call without a cap runs no tanh.
+call without a cap runs no tanh.  ``scale`` replaces the scores'
+1/sqrt(hd) (a muP config's attention multiplier); left None, the kernel
+computes 1/sqrt(hd) as it always has.
 Forward only: with grad mode on, an input that requires grad raises
 (``_build.refuse_grad``), on the CPU too.  On meta tensors (a dry run)
 the wrapper computes nothing: it returns an empty output and reports to
@@ -35,7 +37,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 8 + [ctypes.c_float] * 2 + [_I, _P]
 
 TILE = 64              # splits are whole tiles: kSplitAlign in the .cu
 MIN_SPLIT_TILES = 4    # a split streams at least 256 tokens
@@ -62,7 +64,8 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check(q, k_pages, v_pages, block_tables, context_lens, softcap):
+def _check(q, k_pages, v_pages, block_tables, context_lens, softcap,
+           scale=None):
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"want q [B,H,hd], k/v_pages [P,page,KV,hd]; got "
                          f"{tuple(q.shape)}, {tuple(k_pages.shape)}, "
@@ -95,19 +98,23 @@ def _check(q, k_pages, v_pages, block_tables, context_lens, softcap):
         raise ValueError("inputs must be contiguous")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
+    if scale is not None and not 0 < scale < float("inf"):
+        raise ValueError(f"scale must be positive and finite, got {scale}")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
-                    softcap: Optional[float] = None):
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None):
     """q: [B, H, hd]; k/v_pages: [P, page, KV, hd]; block_tables int32
     [B, n_pages]; context_lens int32 [B] -> [B, H, hd] in q's dtype.
-    A sequence with context length 0 gets zeros.  ``softcap`` (> 0) caps
-    the scaled scores at +-softcap through tanh."""
-    _check(q, k_pages, v_pages, block_tables, context_lens, softcap)
+    A sequence with context length 0 gets zeros.  Scores scaled by
+    ``scale`` (None: 1/sqrt(hd)); ``softcap`` (> 0) caps the scaled scores
+    at +-softcap through tanh."""
+    _check(q, k_pages, v_pages, block_tables, context_lens, softcap, scale)
     _build.refuse_grad("paged_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                   context_lens, softcap)
+                                   context_lens, softcap, scale)
     B, H, hd = q.shape
     P, page, KV, _ = k_pages.shape
     n_pages = block_tables.shape[1]
@@ -133,7 +140,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
              ws.data_ptr(), B, H, KV, hd, page, n_pages, splits, split_tokens,
-             float(softcap or 0.0), int(q.dtype == torch.bfloat16),
+             float(softcap or 0.0), float(scale or 0.0),
+             int(q.dtype == torch.bfloat16),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("paged_attention", err)
     paged_attention.launches += 1

@@ -15,9 +15,11 @@ import torch
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
-                        softcap: Optional[float] = None):
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None):
     """q: [B, H, hd]; k/v_pages: [P, page, KV, hd];
-    block_tables: [B, n_pages] int32; context_lens: [B] int32 -> [B, H, hd]."""
+    block_tables: [B, n_pages] int32; context_lens: [B] int32 -> [B, H, hd].
+    Scores scaled by ``scale``, or hd ** -0.5 where it is None."""
     B, H, hd = q.shape
     page, KV = k_pages.shape[1], k_pages.shape[2]
     G = H // KV
@@ -26,7 +28,8 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
     k = k_pages[bt].reshape(B, S, KV, hd).float()
     v = v_pages[bt].reshape(B, S, KV, hd).float()
     qg = q.reshape(B, KV, G, hd).float()
-    s = torch.einsum("bkgh,bskh->bkgs", qg, k) * hd ** -0.5
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k) \
+        * (hd ** -0.5 if scale is None else scale)
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
     ctx = context_lens.long()

@@ -33,7 +33,11 @@ rotates q and k and writes the new K/V with ``rope_kv_write``, and
 ``ffn_decode`` gates with ``act_mul``; both take the block's normed
 input, which the decode step forms with ``add_rms_norm``.  ``_sdpa``,
 ``rms_norm`` and ``rope`` stay as the plain references the tests compare
-the layers and kernels against.  Training goes around the kernels, which
+the layers and kernels against.  A config with ``position_embedding``
+"nope" rotates nothing on any path, and its ``attention_multiplier``
+(where set) scales the scores of ``_sdpa`` and of both kernels in place
+of head_dim ** -0.5; ``residual_add`` is the residual add with the
+config's ``residual_multiplier``.  Training goes around the kernels, which
 run forward only and refuse inputs that require grad:
 ``attn_forward(..., train=True)`` attends through ``_sdpa_chunked``
 (:135-161), plain einsums over 512-row query chunks, each
@@ -77,6 +81,14 @@ def block_input(x, w, cfg: ModelConfig, ctx: ShardCtx = NULL_CTX):
     flatten a sharded token dim into its rows)."""
     h = rms_norm(x, w, cfg.norm_eps)
     return ctx.constraint(h, ctx.batch_spec_entry(x.shape[0]), None, None)
+
+
+def residual_add(x, y, alpha: float = 1.0):
+    """x + alpha * y: ``x + y`` where alpha is 1, else formed in float32
+    and rounded once to x's dtype, as ``add_rms_norm`` forms it."""
+    if alpha == 1.0:
+        return x + y
+    return (x.float() + y.float() * alpha).to(x.dtype)
 
 
 def _act(name: str):
@@ -154,8 +166,9 @@ def _qkv(p, cfg: ModelConfig, x, positions, ctx: ShardCtx = NULL_CTX,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.rotary:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     bspec = ctx.batch_spec_entry(B)
     kv_tp = ctx.enabled and KV % ctx.tp_size == 0
     if decode:
@@ -186,13 +199,16 @@ def split_heads(t, n: int, ctx: ShardCtx = NULL_CTX):
     return t.reshape(*t.shape[:-1], n, t.shape[-1] // n)
 
 
-def _sdpa(q, k, v, mask, softcap: Optional[float] = None):
+def _sdpa(q, k, v, mask, softcap: Optional[float] = None,
+          scale: Optional[float] = None):
     """Plain reference.  q: [B,Lq,H,hd], k/v: [B,Lk,KV,hd], mask:
-    [B or 1, Lq, Lk] bool -> [B, Lq, H*hd]."""
+    [B or 1, Lq, Lk] bool -> [B, Lq, H*hd].  Scores scaled by ``scale``,
+    or hd ** -0.5 where it is None."""
     B, Lq, H, hd = q.shape
     KV = k.shape[2]
     qg = q.reshape(B, Lq, KV, H // KV, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() * hd ** -0.5
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() \
+        * (hd ** -0.5 if scale is None else scale)
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
     mask = replicated_like(mask, scores)
@@ -214,14 +230,14 @@ def causal_mask(Lq: int, Lk: int, window: Optional[int] = None,
 
 
 def _sdpa_rows(q, k, v, off: int, window: Optional[int],
-               softcap: Optional[float]):
+               softcap: Optional[float], scale: Optional[float] = None):
     """``_sdpa`` of the query rows ``off .. off + len(q)`` over every key."""
     mask = causal_mask(q.shape[1], k.shape[1], window, off, q.device)
-    return _sdpa(q, k, v, mask, softcap)
+    return _sdpa(q, k, v, mask, softcap, scale)
 
 
 def _sdpa_chunked(q, k, v, window: Optional[int], softcap: Optional[float],
-                  chunk: int = 512):
+                  chunk: int = 512, scale: Optional[float] = None):
     """Causal ``_sdpa`` over query chunks, so scores take [B, H, chunk, Lk]
     at most; each chunk's body is rematerialised, so the backward pass
     recomputes its scores instead of holding every chunk's probabilities.
@@ -230,12 +246,12 @@ def _sdpa_chunked(q, k, v, window: Optional[int], softcap: Optional[float],
     Lq = q.shape[1]
     if Lq <= chunk:
         return _sdpa(q, k, v, causal_mask(Lq, Lq, window, device=q.device),
-                     softcap)
+                     softcap, scale)
     if Lq % chunk:
         raise ValueError(f"{Lq} query rows are not a multiple of the "
                          f"{chunk}-row chunk")
     outs = [checkpoint(_sdpa_rows, q[:, off:off + chunk], k, v, off, window,
-                       softcap, use_reentrant=False)
+                       softcap, scale, use_reentrant=False)
             for off in range(0, Lq, chunk)]
     return torch.cat(outs, dim=1)
 
@@ -249,13 +265,15 @@ def attn_forward(p, cfg: ModelConfig, x, positions, window: Optional[int],
     B, L, _ = x.shape
     h = block_input(x, p["ln"], cfg, ctx)
     q, k, v = _qkv(p, cfg, h, positions, ctx)
+    scale = cfg.attention_multiplier
     if ctx.enabled and _is_dtensor(q):
-        y = _attend_sharded(q, k, v, window, cfg.logit_softcap, ctx, train)
+        y = _attend_sharded(q, k, v, window, cfg.logit_softcap, ctx, train,
+                            scale)
     elif train:
-        y = _sdpa_chunked(q, k, v, window, cfg.logit_softcap)
+        y = _sdpa_chunked(q, k, v, window, cfg.logit_softcap, scale=scale)
     else:
         y = flash_attention(q, k, v, causal=True, window=window,
-                            softcap=cfg.logit_softcap)
+                            softcap=cfg.logit_softcap, scale=scale)
     return y.reshape(B, L, -1) @ p["wo"], (k, v)
 
 
@@ -281,7 +299,8 @@ def head_axes(H: int, KV: int, ctx: ShardCtx):
     return q_ax, ctx.model_axis_if_divides(KV) if q_ax else None
 
 
-def _attend_sharded(q, k, v, window, softcap, ctx: ShardCtx, train: bool):
+def _attend_sharded(q, k, v, window, softcap, ctx: ShardCtx, train: bool,
+                    scale: Optional[float] = None):
     """Attention on each rank's shard, under ``local_map``: through
     ``flash_attention``, or with ``train`` the plain ``_sdpa_chunked``
     (whose DTensor einsums would flatten sharded dims).  The batch is over
@@ -308,10 +327,10 @@ def _attend_sharded(q, k, v, window, softcap, ctx: ShardCtx, train: bool):
             r = ctx.mesh.get_local_rank(ctx.model_axis)
             kl, vl = (local_heads(t, H, ql.shape[2], r) for t in (kl, vl))
         if train:
-            return _sdpa_chunked(ql, kl, vl, window, softcap)
+            return _sdpa_chunked(ql, kl, vl, window, softcap, scale=scale)
         y = flash_attention(ql.contiguous(), kl.contiguous(),
                             vl.contiguous(), causal=True, window=window,
-                            softcap=softcap)
+                            softcap=softcap, scale=scale)
         return y.reshape(*y.shape[:2], -1)
     return local_map(body, out_placements=(placements((bspec, None, q_ax),
                                                       ctx.mesh),),
@@ -339,16 +358,18 @@ def attn_decode(p, cfg: ModelConfig, h, k_pages, v_pages, tables,
     the positions so far, as JAX's mask ``slot <= pos | pos >= S`` keeps
     (rows hold K after RoPE, so their order does not change the scores);
     the scores capped at ``cfg.logit_softcap`` where the config sets one.
-    No host read."""
+    A NoPE config rotates nothing (``rope_kv_write`` with no theta).  No
+    host read."""
     B = h.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = rope_kv_write((h @ p["wq"]).view(B, H, hd),
                       (h @ p["wk"]).view(B, KV, hd),
                       (h @ p["wv"]).view(B, KV, hd), context_lens, tables,
-                      k_pages, v_pages, cfg.rope_theta, p.get("q_norm"),
-                      p.get("k_norm"), cfg.norm_eps, size)
+                      k_pages, v_pages, cfg.rope_theta if cfg.rotary else None,
+                      p.get("q_norm"), p.get("k_norm"), cfg.norm_eps, size)
     lens = context_lens if size is None else context_lens.clamp_max(size)
-    y = paged_attention(q, k_pages, v_pages, tables, lens, cfg.logit_softcap)
+    y = paged_attention(q, k_pages, v_pages, tables, lens, cfg.logit_softcap,
+                        cfg.attention_multiplier)
     return y.reshape(B, 1, -1) @ p["wo"]
 
 
@@ -405,13 +426,15 @@ def ring_attn_decode(p, cfg: ModelConfig, x, cache_k, cache_v, pos,
             and cfg.num_kv_heads % ctx.tp_size == 0
             and not any(pl.is_shard(1) for pl in cache_k.placements)):
         y = _ring_attend_sharded(q, cache_k, cache_v, valid, cfg.logit_softcap,
-                                 ctx)
+                                 ctx, cfg.attention_multiplier)
     else:
-        y = _sdpa(q, cache_k, cache_v, valid[:, None, :], cfg.logit_softcap)
+        y = _sdpa(q, cache_k, cache_v, valid[:, None, :], cfg.logit_softcap,
+                  cfg.attention_multiplier)
     return y @ p["wo"]
 
 
-def _ring_attend_sharded(q, cache_k, cache_v, valid, softcap, ctx: ShardCtx):
+def _ring_attend_sharded(q, cache_k, cache_v, valid, softcap, ctx: ShardCtx,
+                         scale: Optional[float] = None):
     """``_sdpa`` of one token over the ring on each rank's shard, under
     ``local_map``, where the cache holds whole KV heads over the model axis
     and all of its rows (DTensor's einsum would flatten sharded dims); a
@@ -421,7 +444,8 @@ def _ring_attend_sharded(q, cache_k, cache_v, valid, softcap, ctx: ShardCtx):
     bspec = ctx.batch_spec_entry(q.shape[0])
     M = ctx.model_axis
     return local_map(
-        lambda ql, kl, vl, ml: _sdpa(ql, kl, vl, ml[:, None, :], softcap),
+        lambda ql, kl, vl, ml: _sdpa(ql, kl, vl, ml[:, None, :], softcap,
+                                     scale),
         out_placements=(placements((bspec, None, M), ctx.mesh),),
         in_placements=(placements((bspec, None, M, None), ctx.mesh),
                        cache_k.placements, cache_v.placements,
@@ -444,18 +468,19 @@ def attn_chunk(p, cfg: ModelConfig, x, cache_k, cache_v, pos0: int,
     q, k_new, v_new = _qkv(p, cfg, h, positions, ctx)
     if ctx.enabled and _is_dtensor(q):
         y = _chunk_sharded(q, k_new, v_new, cache_k, cache_v, pos0, window,
-                           cfg.logit_softcap, ctx)
+                           cfg.logit_softcap, ctx, cfg.attention_multiplier)
     else:
         cache_k[:, pos0:pos0 + C] = k_new
         cache_v[:, pos0:pos0 + C] = v_new
         y = flash_attention(q, cache_k[:, :pos0 + C], cache_v[:, :pos0 + C],
                             causal=True, window=window,
-                            softcap=cfg.logit_softcap)
+                            softcap=cfg.logit_softcap,
+                            scale=cfg.attention_multiplier)
     return y.reshape(B, C, -1) @ p["wo"]
 
 
 def _chunk_sharded(q, k_new, v_new, cache_k, cache_v, pos0: int, window,
-                   softcap, ctx: ShardCtx):
+                   softcap, ctx: ShardCtx, scale: Optional[float] = None):
     """``attn_chunk``'s write and flash call on each rank's shard, under
     ``local_map``, as ``_attend_sharded`` splits prefill: the batch over
     the data axes, whole heads over the model axis (``head_axes``), a rank
@@ -484,7 +509,7 @@ def _chunk_sharded(q, k_new, v_new, cache_k, cache_v, pos0: int, window,
             kc, vc = (local_heads(t, H, ql.shape[2], r).contiguous()
                       for t in (kc, vc))
         y = flash_attention(ql.contiguous(), kc, vc, causal=True,
-                            window=window, softcap=softcap)
+                            window=window, softcap=softcap, scale=scale)
         return y.reshape(*y.shape[:2], -1)
     return local_map(body, out_placements=(placements((bspec, None, q_ax),
                                                       ctx.mesh),),

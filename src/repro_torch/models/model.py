@@ -49,6 +49,14 @@ Differences:
   masters).  The serving forward goes through the kernels, which run
   forward only.
 
+The config's muP scalars hold on every path: the embedding times
+``embedding_multiplier``, each block's output times
+``residual_multiplier`` as it joins the residual (``layers.residual_add``,
+in decode folded into ``add_rms_norm``), the logits divided by
+``logits_scaling``; NoPE (``position_embedding`` "nope") and
+``attention_multiplier`` reach every full and window attention path, and
+an MLA layer, whose rotary part and scale are its own, refuses both.
+
 Layers run ``full`` or ``window`` attention, ``mla`` or ``mamba`` mixers,
 each with a dense FFN, a MoE FFN or none; full and window attention cap
 their scores at ``cfg.logit_softcap`` where it is set, on every path, as
@@ -151,6 +159,15 @@ def check_supported(cfg: ModelConfig) -> None:
                 f"{cfg.name}: the port runs {'/'.join(MIXERS)} mixers with "
                 f"a {'/'.join(FFNS)} FFN, got mixer={blk.mixer!r} "
                 f"ffn={blk.ffn!r}")
+        if blk.mixer == "mla":
+            for field, ok in (("position_embedding", cfg.rotary),
+                              ("attention_multiplier",
+                               cfg.attention_multiplier is None)):
+                if not ok:
+                    raise NotImplementedError(
+                        f"{cfg.name}: an MLA layer keeps its own rotary "
+                        f"part and scale; {field} "
+                        f"{getattr(cfg, field)!r} is not supported there")
 
 
 def padded_vocab(cfg: ModelConfig, multiple: int = 256) -> int:
@@ -212,13 +229,22 @@ def _embed(w, tokens):
     return w[tokens]
 
 
+def _scaled_embed(model: Model, tokens, params: Optional[Dict] = None):
+    """Rows ``tokens`` of the embedding, times the config's
+    ``embedding_multiplier`` where it is not 1."""
+    x = _embed(_top(model, "embed", params), tokens)
+    m = model.cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
 def embed_tokens(model: Model, tokens, prefix_embeds=None,
                  params: Optional[Dict] = None, ctx: ShardCtx = NULL_CTX):
-    """Token embeddings [B, S, d]; with ``prefix_embeds`` [B, n, d] (a
-    config with ``n_prefix_embeds`` only), their projection comes first,
-    [B, n + S, d].  ``params``: tensors by parameter name (``top.embed``,
-    ``top.prefix_proj``) to use in place of the model's own."""
-    x = _embed(_top(model, "embed", params), tokens)
+    """Token embeddings [B, S, d] (times ``embedding_multiplier``); with
+    ``prefix_embeds`` [B, n, d] (a config with ``n_prefix_embeds`` only),
+    their projection comes first, [B, n + S, d].  ``params``: tensors by
+    parameter name (``top.embed``, ``top.prefix_proj``) to use in place of
+    the model's own."""
+    x = _scaled_embed(model, tokens, params)
     if model.cfg.n_prefix_embeds and prefix_embeds is not None:
         pre = prefix_embeds.to(x.dtype) @ _top(model, "prefix_proj", params)
         x = torch.cat([pre, x], dim=1)
@@ -236,7 +262,10 @@ def lm_head_weight(model: Model, params: Optional[Dict] = None):
 
 
 def logits_fn(model: Model, hidden):
-    return hidden @ lm_head_weight(model)
+    """hidden @ the head, divided by ``logits_scaling`` where it is not 1."""
+    logits = hidden @ lm_head_weight(model)
+    s = model.cfg.logits_scaling
+    return logits if s == 1.0 else logits / s
 
 
 def _ffn(spec: BlockSpec, p, cfg: ModelConfig, x, ctx: ShardCtx = NULL_CTX):
@@ -256,6 +285,7 @@ def _between_layers(x, ctx: ShardCtx):
 def _run_layers(model: Model, x, positions, collect: bool,
                 ctx: ShardCtx = NULL_CTX):
     cfg = model.cfg
+    alpha = cfg.residual_multiplier
     states = []
     aux = torch.zeros((), device=x.device)
     for blk in model.layers:
@@ -269,12 +299,12 @@ def _run_layers(model: Model, x, positions, collect: bool,
                                       return_state=True)
         else:
             y, st = ssd.mamba_forward(blk.mixer, cfg, x, ctx), None
-        x = x + y
+        x = L.residual_add(x, y, alpha)
         if collect:
             states.append(st)
         if blk.ffn is not None:
             y, a = _ffn(blk.spec, blk.ffn, cfg, x, ctx)
-            x, aux = x + y, aux + a
+            x, aux = L.residual_add(x, y, alpha), aux + a
         x = _between_layers(x, ctx)
     return L.rms_norm(x, model.top["final_norm"], cfg.norm_eps), states, aux
 
@@ -293,11 +323,13 @@ def _train_layer(spec: BlockSpec, parts: dict, cfg: ModelConfig, x,
         y, _ = L.mla_forward(parts["attn"], cfg, x, positions, ctx)
     else:
         y = ssd.mamba_forward(parts["mixer"], cfg, x, ctx, train=True)
-    x = x + ctx.grad_constraint(y, bspec, None, None)
+    alpha = cfg.residual_multiplier
+    x = L.residual_add(x, ctx.grad_constraint(y, bspec, None, None), alpha)
     aux = 0.0
     if "ffn" in parts:
         y, aux = _ffn(spec, parts["ffn"], cfg, x, ctx)
-        x = x + ctx.grad_constraint(y, bspec, None, None)
+        x = L.residual_add(x, ctx.grad_constraint(y, bspec, None, None),
+                           alpha)
     return _between_layers(x, ctx), aux
 
 
@@ -518,9 +550,10 @@ def ring_decode_step(model: Model, tokens, cache: dict,
     mamba through ``mamba_decode``; ``pos`` advances by one.  Returns
     (logits [B, V], cache)."""
     cfg = model.cfg
+    alpha = cfg.residual_multiplier
     pos = cache["pos"]
     with sharded_scope(ctx):
-        x = _embed(model.top["embed"], tokens)
+        x = _scaled_embed(model, tokens)
         bspec = ctx.batch_spec_entry(x.shape[0])
         x = ctx.constraint(x, bspec, None, None)
         for blk, c in zip(model.layers, cache["layers"]):
@@ -531,9 +564,10 @@ def ring_decode_step(model: Model, tokens, cache: dict,
                 y = L.mla_decode(blk.attn, cfg, x, c["ckv"], c["kr"], pos + 1)
             else:
                 y, _ = ssd.mamba_decode(blk.mixer, cfg, x, c["conv"], c["ssm"])
-            x = x + y
+            x = L.residual_add(x, y, alpha)
             if blk.ffn is not None:
-                x = x + _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0]
+                x = L.residual_add(x, _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0],
+                                   alpha)
             x = ctx.constraint(x, bspec, None, None)
         x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
         logits = logits_fn(model, x[:, 0])
@@ -561,15 +595,18 @@ def prefill_chunk(model: Model, cache: dict, tokens, ctx: ShardCtx = NULL_CTX):
     if pos0 + C > cache["k"].shape[2]:
         raise ValueError(f"chunk ends at {pos0 + C}, past the staging cache "
                          f"of {cache['k'].shape[2]} positions")
+    alpha = cfg.residual_multiplier
     with sharded_scope(ctx):
-        x = _embed(model.top["embed"], tokens)
+        x = _scaled_embed(model, tokens)
         bspec = ctx.batch_spec_entry(B)
         x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
         for i, blk in enumerate(model.layers):
-            x = x + L.attn_chunk(blk.attn, cfg, x, cache["k"][i],
-                                 cache["v"][i], pos0, blk.spec.window, ctx)
+            x = L.residual_add(x, L.attn_chunk(
+                blk.attn, cfg, x, cache["k"][i], cache["v"][i], pos0,
+                blk.spec.window, ctx), alpha)
             if blk.ffn is not None:
-                x = x + _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0]
+                x = L.residual_add(x, _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0],
+                                   alpha)
             x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
         x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
         x = ctx.constraint(x, bspec, None, None)
@@ -603,14 +640,15 @@ def decode_step(model: Model, tokens, cache: dict):
     CUDA graph.  Each block's output ``y`` is added to the residual stream
     by the next block's norm (``add_rms_norm``, the final norm included),
     where that block is an attention layer or a dense FFN; MLA, mamba and
-    MoE blocks add it first and norm inside.  Returns logits [B, V]."""
+    MoE blocks add it first and norm inside.  Each add takes the config's
+    ``residual_multiplier``.  Returns logits [B, V]."""
     cfg = model.cfg
-    eps = cfg.norm_eps
+    eps, alpha = cfg.norm_eps, cfg.residual_multiplier
     x = embed_tokens(model, tokens)[:, None]
     y = None                  # the last block's output, not yet in x
     for blk, (kind, i) in zip(model.layers, layer_caches(cfg)):
         if kind in ("kv", "win"):
-            x, h = add_rms_norm(x, y, blk.attn["ln"], eps)
+            x, h = add_rms_norm(x, y, blk.attn["ln"], eps, alpha)
             if kind == "kv":
                 y = L.attn_decode(blk.attn, cfg, h, cache["k_pages"][i],
                                   cache["v_pages"][i], cache["block_tables"],
@@ -621,7 +659,7 @@ def decode_step(model: Model, tokens, cache: dict):
                 y = L.attn_decode(blk.attn, cfg, h, k[rank], v[rank], tables,
                                   cache["context_lens"], size)
         else:
-            x = x if y is None else x + y
+            x = x if y is None else L.residual_add(x, y, alpha)
             if kind == "mla":
                 y = L.mla_decode(blk.attn, cfg, x, cache["ckv"][i],
                                  cache["kr"][i], cache["context_lens"])
@@ -631,10 +669,10 @@ def decode_step(model: Model, tokens, cache: dict):
                     {k: v[i] for k, v in cache["conv"].items()},
                     cache["ssm"][i])
         if blk.spec.ffn == "dense":
-            x, h = add_rms_norm(x, y, blk.ffn["ln"], eps)
+            x, h = add_rms_norm(x, y, blk.ffn["ln"], eps, alpha)
             y = L.ffn_decode(blk.ffn, cfg, h)
         elif blk.spec.ffn == "moe":
-            x = x + y
+            x = L.residual_add(x, y, alpha)
             y, _ = L.moe_forward(blk.ffn, cfg, x)
-    _, h = add_rms_norm(x, y, model.top["final_norm"], eps)
+    _, h = add_rms_norm(x, y, model.top["final_norm"], eps, alpha)
     return logits_fn(model, h[:, 0])

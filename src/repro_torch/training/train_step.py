@@ -71,6 +71,12 @@ def trainable(model: Model) -> Dict[str, torch.nn.Parameter]:
 
 def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
                  ce_chunk: int = 512, remat: bool = True):
+    if cfg.logits_scaling != 1.0:
+        # the chunked cross entropy forms h @ w_head itself
+        raise NotImplementedError(
+            f"{cfg.name}: the training loss takes no logits_scaling "
+            f"({cfg.logits_scaling})")
+
     def loss_fn(model: Model, tokens, labels, mask, prefix_embeds=None):
         p_half = cast_half(dict(model.named_parameters()))
         hidden, aux = model_forward(model, tokens, prefix_embeds, ctx,

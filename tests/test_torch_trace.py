@@ -205,3 +205,36 @@ def test_engine_spans_under_the_profiler_are_annotations(model):
     assert notes["decode"] == sum(r.profiled for r in recs
                                   if r.name == "decode") == 3
     assert not any(r.profiled for r in recs if r.name == "queued")
+
+
+@pytest.mark.parametrize("arch", ["granite-4.0-h-small", "mamba2-1.3b",
+                                  "llama3.1-8b"])
+def test_one_state_span_per_admission_of_a_mamba_engine(arch):
+    """A config with mamba layers records one ``prefill.state`` a one-shot
+    admission, a child of its ``prefill.call``, with the bytes written:
+    the mamba layers x (the f32 state + the conv history); a config
+    without them records none."""
+    torch.set_num_threads(1)
+    cfg = reduce_config(get_config(arch))
+    eng = InferenceEngine(cfg, max_batch=2, max_len=64, device="cpu")
+    for rid, n in enumerate(SIZES):
+        eng.submit(EngineRequest(rid=rid, tokens=list(range(3, 3 + n)),
+                                 prompt_len=n, max_new_tokens=3))
+    eng.run_until_drained()
+    recs = eng.trace.records()
+    states = [r for r in recs if r.name == "prefill.state"]
+    n_mamba = sum(b.mixer == "mamba" for b in cfg.layer_list())
+    if not n_mamba:
+        assert states == []
+        return
+    calls = {r.sid: r for r in recs if r.name == "prefill.call"}
+    assert sorted(r.rid for r in states) == list(range(len(SIZES)))
+    s = cfg.ssm
+    di, gn = s.d_inner(cfg.d_model), s.n_groups * s.d_state
+    per_layer = (s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
+                 + (s.d_conv - 1) * (di + 2 * gn) * 4)     # fp32 weights
+    for r in states:
+        assert r.attrs == {"bytes": n_mamba * per_layer}
+        call = calls[r.parent]
+        assert call.rid == r.rid and call.t0 <= r.t0 <= r.t1 <= call.t1
+        assert not r.profiled
