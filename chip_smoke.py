@@ -118,7 +118,21 @@ JAX.  Phases, each printing one JSON line:
    page, window rings before and after they wrap; last, one minicpm-2b
    decode replay (16 slots of 1024-token prompts) profiled with the fused
    glue and with the plain chains (``decode_replay`` lines: kernels a
-   replay, device busy ms, ms a replay outside the profiler);
+   replay, device busy ms, ms a replay outside the profiler).  Then the
+   prefill's fused glue (``prefill_fused`` lines): ``add_rms_norm``,
+   ``rope_kv_prefill`` and ``act_mul`` over a minicpm-2b prompt's rows
+   (``PREFILL_ROWS``: 2000 rows one-shot, [2000, 2304] and [2000, 5760],
+   36/36 heads at hd 64; a 512-row chunk at pos0 1536 into a staging
+   cache), each timed beside its plain chain and equal to it bit for bit
+   (``bit_equal``: the sums of squares run in PyTorch's own order), and
+   untimed on
+   ``PREFILL_BRANCHES`` (hd 16-256, qk_norm, NoPE, two prompts into a
+   staging cache); last, one minicpm-2b one-shot call of 1024 tokens and
+   one 512-token chunk with the fused glue and with the plain chains
+   (``prefill_call`` lines: the wrappers' launches, kernels and device
+   busy ms a call from a profiler trace, median wall ms of 10 calls; a
+   ``prefill_call_equal`` line holds their logits and K/V rows equal bit
+   for bit);
 3. reduced: reduced llama3.1-8b, mamba2-1.3b, a hybrid (a mamba layer,
    then full attention), minicpm-2b, qwen3-32b (qk_norm), internvl2-1b,
    musicgen-medium, deepseek-v2-lite-16b (MLA and MoE: no kernel, the
@@ -155,7 +169,12 @@ JAX.  Phases, each printing one JSON line:
    both.  Every request must finish, and every prefill and decode layer
    must have launched its kernel, exactly: flash and paged once per
    attention layer (full or window) per prefill call and decode step,
-   ssd once per mamba layer per prefill call (deepseek: none).  The
+   ssd once per mamba layer per prefill call (deepseek: none), and the
+   fused glue as ``fused_counts`` gives it (per prefill call and decode
+   step an ``add_rms_norm`` per attention layer and dense FFN and one
+   more, an ``act_mul`` per dense FFN, per attention layer a
+   ``rope_kv_prefill`` a prefill call and a ``rope_kv_write`` a decode
+   step).  The
    launch counts are set to 0 just before each model's run and read just
    after it (the engines, built before, capture their decode graphs
    without counting; each replay counts the launches its capture
@@ -1271,9 +1290,9 @@ FUSED_BRANCHES = [
     (3, 2304, 36, 36, 64, False, "silu", None, 16, "float32"),
 ]
 # a kernel against its plain chain: within one rounding step of the
-# largest output in bf16 (a sum of squares taken in another order moves
-# the norm's fp32 result by an ulp, and that can move a bf16 rounding),
-# 1e-5 of it in fp32
+# largest output in bf16, 1e-5 of it in fp32 (the kernels take each sum of
+# squares in PyTorch's own order, so each line's ``bit_equal`` says whether
+# they also agree bit for bit, as they should)
 FUSED_TOL = {"bfloat16": 2.0 ** -7, "float32": 1e-5}
 
 
@@ -1373,6 +1392,7 @@ def fused_case(B, d, H, KV, hd, qk_norm, act, ring, page, dtype_name, seed,
                "qk_norm": qk_norm, "act": act, "ring": ring, "page": page,
                "theta": theta, "alpha": alpha,
                "dtype": dtype_name, "d_ff": a["g"].shape[-1],
+               "bit_equal": all(torch.equal(x, y) for x, y in pairs),
                **_fused_err(pairs, dtype_name)}
         if timed:
             b_ms, by = bound(nbytes[name], 0.0, dtype_name)
@@ -1434,18 +1454,19 @@ def decode_replay_case(card: str, plain: bool, steps: int = 5) -> dict:
 
 @contextlib.contextmanager
 def plain_glue():
-    """The decode step's glue through the plain chains of
+    """The decode step's and prefill's glue through the plain chains of
     ``kernels/decode_fused/ref.py`` in place of the fused kernels."""
     from repro_torch.kernels.decode_fused import ref
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
-    saved = M.add_rms_norm, L.rope_kv_write, L.act_mul
-    M.add_rms_norm, L.rope_kv_write, L.act_mul = (
-        ref.add_rms_norm_ref, ref.rope_kv_write_ref, ref.act_mul_ref)
+    saved = M.add_rms_norm, L.rope_kv_write, L.rope_kv_prefill, L.act_mul
+    M.add_rms_norm, L.rope_kv_write, L.rope_kv_prefill, L.act_mul = (
+        ref.add_rms_norm_ref, ref.rope_kv_write_ref, ref.rope_kv_prefill_ref,
+        ref.act_mul_ref)
     try:
         yield
     finally:
-        M.add_rms_norm, L.rope_kv_write, L.act_mul = saved
+        M.add_rms_norm, L.rope_kv_write, L.rope_kv_prefill, L.act_mul = saved
 
 
 def check_decode_fused(cases: dict, card: str):
@@ -1481,6 +1502,242 @@ def check_decode_fused(cases: dict, card: str):
                              f"replay: {replays}")
 
 
+# (name, B, L, pos0, staging rows or None, d, H, KV, hd, d_ff, qk_norm, act,
+# theta, alpha) of the timed fused-prefill rows: a minicpm-2b one-shot
+# prompt of 2000 tokens (K into its own buffer, V left where it is) and
+# engine 1's fourth 512-token chunk (K and V into the staging cache's rows
+# 1536 onward)
+PREFILL_ROWS = [
+    ("minicpm-2b one-shot", 1, 2000, 0, None, 2304, 36, 36, 64, 5760, False,
+     "silu", 10000.0, 1.0),
+    ("minicpm-2b chunk", 1, 512, 1536, 4096, 2304, 36, 36, 64, 5760, False,
+     "silu", 10000.0, 1.0),
+]
+# (B, L, pos0, staging rows or None, d, H, KV, hd, d_ff, qk_norm, act,
+# theta, alpha, dtype_name) of the untimed fused-prefill branches: head
+# dims 16-256, qk_norm, NoPE with a residual multiplier, two prompts into
+# a staging cache (its batch stride), rows and sizes no 16-byte vector
+# divides
+PREFILL_BRANCHES = [
+    (1, 37, 0, None, 64, 4, 4, 16, 197, False, "silu", 1e4, 1.0, "float32"),
+    (2, 21, 5, 40, 100, 4, 2, 32, 303, True, "gelu", 1e6, 1.0, "bfloat16"),
+    (2, 33, 0, None, 256, 8, 2, 128, 768, False, "silu", None, 0.22,
+     "bfloat16"),
+    (1, 19, 100, 128, 512, 4, 1, 256, 1024, True, "gelu", 1e4, 1.0,
+     "bfloat16"),
+    (2, 50, 7, 64, 2304, 36, 36, 64, 5760, False, "silu", 1e4, 1.0,
+     "float32"),
+]
+
+
+def prefill_fused_case(B, Lr, pos0, staging, d, H, KV, hd, d_ff, qk_norm,
+                       act, theta, alpha, dtype_name, seed, timed=False,
+                       eps=1e-6):
+    """``add_rms_norm``, ``rope_kv_prefill`` and ``act_mul`` over a
+    prompt's rows on the card against their plain chains (``ref.py``) on
+    the same inputs: outputs and, with ``staging`` rows, the whole staging
+    layers after both wrote rows ``pos0`` onward.  ``bit_equal``: every
+    pair equal bit for bit; ``n_differ``: the elements that are not.
+    ``timed``: each kernel's and chain's device ms, and bounds."""
+    import torch
+    from repro_torch.kernels.decode_fused import ops, ref
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dt)
+    n = B * Lr
+    x, y, w = rnd(n, d), rnd(n, d), rnd(d, std=0.1)
+    q, k, v = rnd(B, Lr, H, hd), rnd(B, Lr, KV, hd), rnd(B, Lr, KV, hd)
+    qn = rnd(hd, std=0.1) if qk_norm else None
+    kn = rnd(hd, std=0.1) if qk_norm else None
+    gate, up = rnd(n, d_ff, std=2.0), rnd(n, d_ff)
+    pools = []
+    if staging:
+        base = (rnd(B, staging, KV, hd), rnd(B, staging, KV, hd))
+        pools = [tuple(t.clone() for t in base) for _ in range(2)]
+
+    def rope(fn, i):
+        outs = () if not staging else tuple(t[:, pos0:pos0 + Lr]
+                                            for t in pools[i])
+        return lambda: fn(q, k, v, pos0, theta, qn, kn, eps, *outs)
+    runs = {
+        "add_rms_norm": (lambda: ops.add_rms_norm(x, y, w, eps, alpha),
+                         lambda: ref.add_rms_norm_ref(x, y, w, eps, alpha)),
+        "rope_kv_prefill": (rope(ops.rope_kv_prefill, 0),
+                            rope(ref.rope_kv_prefill_ref, 1)),
+        "act_mul": (lambda: ops.act_mul(gate, up, act),
+                    lambda: ref.act_mul_ref(gate, up, act)),
+    }
+    es = x.element_size()
+    heads = B * Lr * (H + KV) * hd
+    nbytes = {"add_rms_norm": es * (4 * n * d + d),
+              "rope_kv_prefill": es * (2 * heads + 2 * B * Lr * KV * hd
+                                       * bool(staging)
+                                       + 2 * hd * qk_norm)
+              + 4 * (hd // 2),
+              "act_mul": 3 * es * n * d_ff}
+    rows = []
+    for name, (fused, plain) in runs.items():
+        got, want = fused(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,)))
+        if name == "rope_kv_prefill":
+            pairs += list(zip(pools[0], pools[1])) if staging else []
+        row = {"name": name, "B": B, "L": Lr, "pos0": pos0,
+               "staging": staging, "d": d, "H": H, "KV": KV, "hd": hd,
+               "d_ff": d_ff, "qk_norm": qk_norm, "act": act, "theta": theta,
+               "alpha": alpha, "dtype": dtype_name,
+               "bit_equal": all(torch.equal(a, b) for a, b in pairs),
+               "n_differ": sum(int((a != b).sum()) for a, b in pairs),
+               **_fused_err(pairs, dtype_name)}
+        if timed:
+            b_ms, by = bound(nbytes[name], 0.0, dtype_name)
+            row.update(ms=time_ms(fused), plain_ms=time_ms(plain),
+                       bound_ms=b_ms, bound_by=by, library_ms=None)
+        rows.append(row)
+    return rows
+
+
+PREFILL_CALL_PROMPT = 1024     # the one-shot prompt; its second half is
+PREFILL_CALL_CHUNK = 512       # the chunk, at pos0 512 of a staging cache
+
+
+def prefill_call_case(card: str) -> list:
+    """One minicpm-2b admission at full width in bf16, through the fused
+    glue and through the plain chains (``plain_glue``), on one weight set:
+    a one-shot prompt of ``PREFILL_CALL_PROMPT`` tokens (the engine's
+    ``_prefill_into_slot``: prefill, the page writes, the sample) and one
+    chunk of ``PREFILL_CALL_CHUNK`` at pos0 512 (``prefill_chunk``).  Per
+    call and glue: the wrappers' launches, the kernels and device busy ms
+    of a profiled call, and the median wall ms of 10 calls outside the
+    profiler, each between two synchronises.  The fused and plain calls'
+    last-token logits and every K/V row they wrote, compared."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine.engine import EngineRequest, InferenceEngine
+    from repro_torch.launch.profile_step import _traced
+    from repro_torch.models.model import init_params, prefill, prefill_chunk
+    _free_card()
+    cfg = get_config("minicpm-2b")
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    eng = InferenceEngine(cfg, params, max_batch=2, max_len=2048,
+                          prefill_chunk=PREFILL_CALL_CHUNK, device="cuda")
+    g = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (PREFILL_CALL_PROMPT,),
+                           generator=g)
+    toks = prompt.to("cuda")[None]
+    head, tail = toks[:, :512], toks[:, 512:512 + PREFILL_CALL_CHUNK]
+    sc = eng._stage_cache
+
+    def one_shot():
+        eng._prefill_into_slot(0, EngineRequest(
+            rid=0, tokens=prompt.tolist(), prompt_len=len(prompt),
+            max_new_tokens=1))
+        eng._free(0)
+
+    def chunk():
+        sc["pos"] = 512
+        prefill_chunk(params, sc, tail)
+        torch.cuda.synchronize()
+
+    out = ROOT / "build" / "prefill_call"
+    out.mkdir(parents=True, exist_ok=True)
+    rows, seen = [], {}
+    for glue in ("plain", "fused"):
+        with plain_glue() if glue == "plain" else contextlib.nullcontext():
+            with torch.no_grad():
+                logits, states = prefill(params, toks)
+                sc["pos"] = 0
+                prefill_chunk(params, sc, head)
+                chunk_logits, _ = prefill_chunk(params, sc, tail)
+                # the logits first, then every K/V row written
+                seen[glue] = [logits, chunk_logits,
+                              *(t for st in states for t in st),
+                              sc["k"][:, :, :1024].clone(),
+                              sc["v"][:, :, :1024].clone()]
+                del states
+                for call, fn in (("one-shot", one_shot), ("chunk", chunk)):
+                    fn()
+                    torch.cuda.synchronize()
+                    _zero_counts()
+                    fn()
+                    launches = {k: c for k, c in _path_counts().items() if c}
+                    line = _traced(f"{glue}_{call}", fn, 3, out)
+                    walls = []
+                    for _ in range(10):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn()
+                        torch.cuda.synchronize()
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                    rows.append({
+                        "phase": "prefill_call", "config": cfg.name,
+                        "call": call, "glue": glue,
+                        "tokens": (PREFILL_CALL_PROMPT if call == "one-shot"
+                                   else PREFILL_CALL_CHUNK),
+                        "wrapper_launches": launches,
+                        "wrapper_launches_total": sum(launches.values()),
+                        "kernels_per_call": line["launches_per_step"],
+                        "device_busy_ms": line["device_busy_ms"],
+                        "wall_ms": statistics.median(walls),
+                        "wall_ms_all": walls,
+                        "device_ms_by_kind": line["device_ms_by_kind"],
+                        "nvidia_smi": card})
+    pairs = list(zip(seen["plain"], seen["fused"]))
+    rows.append({"phase": "prefill_call_equal", "config": cfg.name,
+                 "bit_equal": all(torch.equal(a, b) for a, b in pairs),
+                 "n_differ": sum(int((a != b).sum()) for a, b in pairs),
+                 "tensors": len(pairs),
+                 "kv_max_abs_err": max(max_err(a, b) for a, b in pairs[2:]),
+                 "logits_max_abs_err": max(max_err(a, b)
+                                           for a, b in pairs[:2]),
+                 "logits_max": max(a.float().abs().max().item()
+                                   for a, _ in pairs[:2]),
+                 "nvidia_smi": card})
+    del eng, params, seen
+    _free_card()
+    return rows
+
+
+def check_prefill_fused(cases: dict, card: str):
+    """The fused prefill glue: ``PREFILL_ROWS`` timed (into
+    ``cases["prefill_rows"]``), ``PREFILL_BRANCHES`` untimed, each kernel
+    equal to its plain chain bit for bit; then one minicpm-2b one-shot call
+    and one chunk call with the fused glue and with the plain chains
+    (``cases["prefill_calls"]``), which must launch fewer kernels fused and
+    give the same logits and K/V rows, bit for bit."""
+    for i, (name, *shape) in enumerate(PREFILL_ROWS):
+        for r in prefill_fused_case(*shape, "bfloat16", seed=700 + i,
+                                    timed=True):
+            r = {"model": name, **r}
+            emit({"phase": "prefill_fused", **r})
+            cases.setdefault("prefill_rows", []).append(r)
+            if not r["bit_equal"]:
+                raise AssertionError(f"{r['name']} at {name}'s shape "
+                                     f"disagrees with its plain chain: {r}")
+    for i, shape in enumerate(PREFILL_BRANCHES):
+        for r in prefill_fused_case(*shape, seed=750 + i):
+            emit({"phase": "kernel_branch", **r})
+            if not r["bit_equal"]:
+                raise AssertionError(f"{r['name']} disagrees with its plain "
+                                     f"chain: {r}")
+    rows = prefill_call_case(card)
+    for r in rows:
+        emit(r)
+    cases["prefill_calls"] = rows
+    calls = {(r["call"], r["glue"]): r for r in rows
+             if r["phase"] == "prefill_call"}
+    for call in ("one-shot", "chunk"):
+        if not (calls[call, "fused"]["kernels_per_call"]
+                < calls[call, "plain"]["kernels_per_call"]):
+            raise AssertionError(f"the fused prefill glue launches no fewer "
+                                 f"kernels a {call} call: {rows}")
+    if not rows[-1]["bit_equal"]:
+        raise AssertionError(f"fused and plain prefill disagree: {rows[-1]}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: reduced model, kernel path against the CPU plain path
 # ---------------------------------------------------------------------------
@@ -1506,20 +1763,24 @@ def path_kernels(cfg):
     attn = {"flash_attention", "paged_attention"}
     by_cache = {"kv": attn, "win": attn, "ssm": {"ssd"}, "mla": set()}
     return set().union(*(by_cache[kind] for kind, _ in layer_caches(cfg)),
-                       (k for k, n in decode_fused_counts(cfg).items() if n))
+                       (k for k, n in fused_counts(cfg, 1, 1).items() if n))
 
 
-def decode_fused_counts(cfg) -> dict:
-    """The fused glue's launches in one decode step of ``cfg``: an
-    ``add_rms_norm`` before each attention (full or window) layer and
-    dense FFN and one at the final norm, one ``rope_kv_write`` per
-    attention layer, one ``act_mul`` per dense FFN (MLA, mamba and MoE
-    blocks run none)."""
+def fused_counts(cfg, decodes: int, prefills: int) -> dict:
+    """The fused glue's launches in ``decodes`` decode steps and
+    ``prefills`` prefill calls (one-shot prompts or chunks) of ``cfg``
+    outside a mesh: in each, an ``add_rms_norm`` before each attention
+    (full or window) layer and dense FFN and one at the final norm, one
+    ``act_mul`` per dense FFN, and per attention layer one
+    ``rope_kv_write`` (decode) or ``rope_kv_prefill`` (prefill); MLA,
+    mamba and MoE blocks run none."""
     n = layer_counts(cfg)
     attn = n["kv"] + n["win"]
     dense = sum(b.ffn == "dense" for b in cfg.layer_list())
-    return {"add_rms_norm": attn + dense + 1, "rope_kv_write": attn,
-            "act_mul": dense}
+    calls = decodes + prefills
+    return {"add_rms_norm": (attn + dense + 1) * calls,
+            "rope_kv_write": attn * decodes,
+            "rope_kv_prefill": attn * prefills, "act_mul": dense * calls}
 
 
 def layer_counts(cfg) -> dict:
@@ -1770,8 +2031,7 @@ def serve_full_width(arch: str, card: str, max_batch=None, periods=None,
     want = {"flash_attention": (n["kv"] + n["win"]) * prefill_calls,
             "ssd": n["ssm"] * prefill_calls,
             "paged_attention": (n["kv"] + n["win"]) * len(decodes),
-            **{k: c * len(decodes)
-               for k, c in decode_fused_counts(cfg).items()}}
+            **fused_counts(cfg, len(decodes), prefill_calls)}
     if not (len(done) == n_req
             and all(len(r.generated) == max_new for r in done)
             and launches == want and all(want[n] > 0 for n in kernels)
@@ -1842,8 +2102,7 @@ def serve_variant(card: str) -> dict:
                         for r in eng.completed)
             want = {"flash_attention": (n["kv"] + n["win"]) * calls,
                     "paged_attention": (n["kv"] + n["win"]) * len(decodes),
-                    "ssd": 0, **{k: c * len(decodes) for k, c in
-                                 decode_fused_counts(cfg).items()}}
+                    "ssd": 0, **fused_counts(cfg, len(decodes), calls)}
             res = {"phase": "serve_variant", "config": cfg.name,
                    "turn": turn, "softcap": cfg.logit_softcap,
                    "windows": sorted({b.window for b in cfg.layer_list()
@@ -2610,8 +2869,8 @@ def _recording_engine():
             self._first = logits[0].to("cpu", copy=True)
             return InferenceEngine._greedy(logits)
 
-        def _prefill_into_slot(self, slot, req):
-            super()._prefill_into_slot(slot, req)
+        def _prefill_into_slot(self, slot, req, call=None):
+            super()._prefill_into_slot(slot, req, call)
             self.picks[req.rid] = [self._first]
 
         def _finish_staged(self, logits):
@@ -2672,7 +2931,8 @@ def _ring_reference(model, requests, chunk, max_batch: int,
     then ``ring_decode_step`` runs every slot at [max_batch, 1], 0 in a
     free row, ``max_batch`` requests at a time.  The arithmetic of the
     engine's step on the 1 x 1 mesh, through the code paths of plain
-    tensors (``splice_ring``'s and the ring write's)."""
+    tensors (``splice_ring``'s and the ring write's), the prompt's glue
+    through the plain chains as the mesh engine's (``plain_glue``)."""
     import torch
     from repro_torch.models.model import (init_cache, prefill, prefill_chunk,
                                           ring_convert_cache,
@@ -2684,7 +2944,7 @@ def _ring_reference(model, requests, chunk, max_batch: int,
     stage = (init_cache(cfg, 1, max_len, dtype=model.dtype, device=dev)
              if chunk else None)
     out = []
-    with torch.no_grad():
+    with torch.no_grad(), plain_glue():
         for g in range(0, len(requests), max_batch):
             group = requests[g:g + max_batch]
             for slot, r in enumerate(group):
@@ -2878,11 +3138,12 @@ def engine_under_mesh(arch: str, dtype_name: str, n_req: int, chunks, ctx,
             calls = sum(1 if chunk is None else math.ceil(r.prompt_len / chunk)
                         for r in eng.completed)
             attn = n["kv"] + n["win"]
-            # the mesh engine's ring decode runs no paged or fused kernel
+            # the mesh engine's prefill and ring decode run no paged or
+            # fused kernel
             want = {"flash_attention": attn * calls, "ssd": n["ssm"] * calls,
                     "paged_attention": 0 if c.enabled else attn * len(steps),
-                    **{k: 0 if c.enabled else m * len(steps)
-                       for k, m in decode_fused_counts(cfg).items()}}
+                    **{k: 0 if c.enabled else m for k, m in
+                       fused_counts(cfg, len(steps), calls).items()}}
             runs[name] = {
                 "finished": len(eng.completed), "prefill_calls": calls,
                 "decode_steps": len(steps), "graph_replays": eng.graph_replays,
@@ -3083,6 +3344,7 @@ def main() -> int:
 
     cases = check_kernels()
     check_decode_fused(cases, card)
+    check_prefill_fused(cases, card)
     for arch in REDUCED_ARCHS:
         check_reduced(arch)
     launches, by_path = {}, {}
@@ -3157,7 +3419,13 @@ def main() -> int:
                "decode_fused.cu", "none: XLA fuses this glue in the JAX step",
                next(r for r in cases["fused_rows"] if r["name"] == name))
           for name in ("add_rms_norm", "rope_kv_write", "act_mul")),
-    ], "decode_replays": cases["replays"], "not_ported": [],
+        line("rope_kv_prefill", "cuda", "src/repro_torch/kernels/"
+             "decode_fused/csrc/decode_fused.cu",
+             "none: XLA fuses this glue in the JAX prefill",
+             next(r for r in cases["prefill_rows"]
+                  if r["name"] == "rope_kv_prefill")),
+    ], "decode_replays": cases["replays"],
+        "prefill_calls": cases["prefill_calls"], "not_ported": [],
         "smoke_s": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -97,6 +97,7 @@ from repro_torch.engine.state_cache import SSMStateCache
 from repro_torch.engine.trace import Span, Tracer
 from repro_torch.engine.window_cache import WindowCache
 from repro_torch.kernels.decode_fused.ops import (act_mul, add_rms_norm,
+                                                  rope_kv_prefill,
                                                   rope_kv_write)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
@@ -107,9 +108,11 @@ from repro_torch.models.model import (Model, decode_step, init_cache,
                                       ring_decode_step, splice_ring,
                                       to_ring_cache)
 
-# the kernel wrappers whose ``launches`` a graph replay adds to
+# the kernel wrappers the engine runs; a graph replay adds to each one's
+# ``launches`` what its capture recorded (none for ``rope_kv_prefill``,
+# which runs in prefill only)
 KERNELS = (paged_attention, flash_attention, ssd, add_rms_norm, rope_kv_write,
-           act_mul)
+           rope_kv_prefill, act_mul)
 WARMUP_STEPS = 2        # eager decode steps on a side stream before capture
 
 

@@ -1,9 +1,10 @@
-"""The decode step's elementwise glue, fused: the wrappers around
+"""A dense layer's elementwise glue, fused: the wrappers around
 ``csrc/decode_fused.cu``.
 
-Three kernels take the place of the PyTorch elementwise, reduction and
-index kernels between a dense layer's GEMMs and the paged attention kernel
-(no TPU kernel: XLA fuses this glue inside the JAX package's jitted step):
+These kernels take the place of the PyTorch elementwise, reduction and
+index kernels between a dense layer's GEMMs and its attention kernel, in
+the decode step and in prefill (no TPU kernel: XLA fuses this glue inside
+the JAX package's jitted step and prefill):
 
 * :func:`add_rms_norm`: the residual add, the block's output times a
   residual multiplier ``alpha`` (muP; 1 by default), folded into the next
@@ -12,6 +13,9 @@ index kernels between a dense layer's GEMMs and the paged attention kernel
   embedding of q and k at each row's position (none for a NoPE config,
   ``theta`` None), and the new K/V's store into its page or ring slot, the
   position and slot formed on the device;
+* :func:`rope_kv_prefill`: the same for the rows of a prompt or chunk at
+  positions ``pos0`` onward, the rotated K (and V) stored where the flash
+  kernel reads them: the prompt's own K buffer or the staging cache;
 * :func:`act_mul`: the gated FFN's ``act(g) * u``.
 
 A CUDA tensor in bf16 or fp32 launches the kernel; a CPU tensor takes the
@@ -20,8 +24,14 @@ plain chain in ``ref.py``; any other dtype raises.  Each wrapper's
 grad mode on, an input that requires grad raises (``_build.refuse_grad``),
 on the CPU too.  On meta tensors (a dry run) a wrapper computes nothing:
 it returns empty outputs and reports its kernel's flops and bytes to
-``_build.record_cost``.  ``models.model.decode_step`` calls them; prefill,
-training and the mesh engine's ring decode keep the plain layers.
+``_build.record_cost`` (``rope_kv_prefill`` takes CPU and CUDA tensors
+only: the dry run's meta tensors take the plain layers).
+``models.model.decode_step`` calls ``add_rms_norm``, ``rope_kv_write`` and
+``act_mul``; ``prefill``, ``prefill_chunk`` and the serving
+``model_forward`` call ``add_rms_norm``, ``rope_kv_prefill`` and
+``act_mul`` on CPU and CUDA tensors outside a mesh.  Training, the mesh
+paths (prefill and chunks under a ``ShardCtx``) and the mesh engine's ring
+decode keep the plain layers.
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_fused.ref import (act_mul_ref,
                                                   add_rms_norm_ref,
+                                                  rope_kv_prefill_ref,
                                                   rope_kv_write_ref)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -214,6 +225,76 @@ def rope_kv_write(q, k, v, context_lens, tables, k_pages, v_pages,
 
 
 rope_kv_write.launches = 0
+
+
+def rope_kv_prefill(q, k, v, pos0: int, theta: Optional[float],
+                    q_norm=None, k_norm=None, eps: float = 1e-6,
+                    k_out=None, v_out=None):
+    """q [B, L, H, hd], k/v [B, L, KV, hd] (contiguous): the projections of
+    a prompt's or chunk's rows, row i at position ``pos0 + i``.  Applies
+    ``q_norm``/``k_norm`` [hd] where given and rotates q and k (``theta``
+    None: no rotation, NoPE).  ``k_out`` and ``v_out`` [B, L, KV, hd],
+    given together (rows of KV * hd in one stride; the staging cache's rows
+    ``pos0`` onward): the rotated k and v are stored there in place.
+    Returns (rotated q, rotated k): a new [B, L, KV, hd] where ``k_out`` is
+    None (v is then left where it is), else ``k_out``."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"rope_kv_prefill: want q [B,L,H,hd], k/v "
+                         f"[B,L,KV,hd]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Lr, H, hd = q.shape
+    KV = k.shape[2]
+    if hd % 2 or hd > MAX_HEAD_DIM:
+        raise ValueError(f"rope_kv_prefill: head dim {hd} is odd or above "
+                         f"{MAX_HEAD_DIM}")
+    if (q_norm is None) != (k_norm is None) or (k_out is None) != \
+            (v_out is None):
+        raise ValueError("rope_kv_prefill: give both of q_norm, k_norm and "
+                         "both of k_out, v_out, or neither")
+    norms = () if q_norm is None else (q_norm, k_norm)
+    if any(tuple(t.shape) != (hd,) for t in norms):
+        raise ValueError("rope_kv_prefill: q_norm and k_norm must be [hd]")
+    outs = () if k_out is None else (k_out, v_out)
+    if any(t.shape != k.shape for t in outs) or (outs and (
+            k_out.stride() != v_out.stride()
+            or k_out.stride()[1:] != (KV * hd, hd, 1))):
+        raise ValueError("rope_kv_prefill: k_out and v_out must be "
+                         "[B, L, KV, hd] with rows of KV * hd in one stride")
+    if pos0 < 0:
+        raise ValueError(f"rope_kv_prefill: pos0 {pos0}")
+    _same("rope_kv_prefill", q, k, v, *norms)
+    if any(t.device != q.device or t.dtype != q.dtype for t in outs):
+        raise ValueError("rope_kv_prefill: k_out and v_out must be on q's "
+                         "device, in its dtype")
+    _build.refuse_grad("rope_kv_prefill", q, k, v, *outs)
+    if q.device.type == "cpu":
+        return rope_kv_prefill_ref(q, k, v, pos0, theta, q_norm, k_norm, eps,
+                                   k_out, v_out)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    q_out = torch.empty_like(q)
+    k_rot = torch.empty_like(k) if k_out is None else k_out
+    if q.numel() == 0:
+        return q_out, k_rot
+    freq = None if theta is None else rope_table(theta, hd, q.device)
+    fn = _build.entry("decode_fused", "rope_kv_prefill_launch",
+                      [_P] * 9 + [ctypes.c_longlong] + [_I] * 6
+                      + [ctypes.c_float, _I, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if q_norm is None else q_norm.data_ptr(),
+             None if k_norm is None else k_norm.data_ptr(),
+             None if freq is None else freq.data_ptr(), q_out.data_ptr(),
+             k_rot.data_ptr(), None if v_out is None else v_out.data_ptr(),
+             k_rot.stride(0) if B > 1 else Lr * KV * hd, B, Lr, H, KV, hd,
+             pos0, float(eps),
+             int(q.dtype == torch.bfloat16), _stream(q))
+    _build.check("decode_fused", err)
+    rope_kv_prefill.launches += 1
+    return q_out, k_rot
+
+
+rope_kv_prefill.launches = 0
 
 
 def act_mul(g, u, act: str):

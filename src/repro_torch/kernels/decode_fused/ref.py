@@ -1,16 +1,19 @@
-"""Plain PyTorch versions of the fused decode glue: the CPU path of
-``ops.add_rms_norm``, ``ops.rope_kv_write`` and ``ops.act_mul``, and the
-chains the kernels are held to.
+"""Plain PyTorch versions of the fused glue: the CPU path of
+``ops.add_rms_norm``, ``ops.rope_kv_write``, ``ops.rope_kv_prefill`` and
+``ops.act_mul``, and the chains the kernels are held to.
 
-Each is the decode step's chain as the model layers write it, unchanged:
-``models/layers.py`` ``rms_norm``, ``rope`` and ``_act`` (imported when
-called: the layers import the wrappers), with the paged and ring index
-math of the engine's decode (a paged row writes position ``context_lens -
-1``; a ring row of ``ring`` rows writes row ``pos % ring``, pos clamped at
-0)."""
+Each is the chain as the model layers wrote it before the kernels,
+unchanged: ``models/layers.py`` ``rms_norm``, ``rope`` and ``_act``
+(imported when called: the layers import the wrappers), with the paged and
+ring index math of the engine's decode (a paged row writes position
+``context_lens - 1``; a ring row of ``ring`` rows writes row ``pos %
+ring``, pos clamped at 0) and the staging cache's rows of a prefill chunk
+(``pos0`` onward)."""
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 
 def add_rms_norm_ref(x, y, w, eps: float, alpha: float = 1.0):
@@ -48,6 +51,29 @@ def rope_kv_write_ref(q, k, v, context_lens, tables, k_pages, v_pages,
     k_pages.view(-1, *k_pages.shape[2:])[idx] = k
     v_pages.view(-1, *v_pages.shape[2:])[idx] = v
     return q
+
+
+def rope_kv_prefill_ref(q, k, v, pos0: int, theta: Optional[float],
+                        q_norm=None, k_norm=None, eps: float = 1e-6,
+                        k_out=None, v_out=None):
+    """q [B, L, H, hd], k/v [B, L, KV, hd]: a prompt's or chunk's
+    projections, row i at position ``pos0 + i``.  ``_qkv``'s qk_norm and
+    ``rope`` (none where ``theta`` is None), then, where ``k_out`` and
+    ``v_out`` [B, L, KV, hd] are given, ``attn_chunk``'s two stores into
+    them.  Returns (q, k), k being ``k_out`` where given."""
+    from repro_torch.models.layers import rms_norm, rope
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, eps)
+        k = rms_norm(k, k_norm, eps)
+    if theta is not None:
+        positions = (pos0 + torch.arange(q.shape[1], device=q.device))[None]
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
+    if k_out is None:
+        return q, k
+    k_out.copy_(k)
+    v_out.copy_(v)
+    return q, k_out
 
 
 def act_mul_ref(g, u, act: str):

@@ -31,7 +31,11 @@ layer's ring with a masked ``_sdpa``).  The decode step's glue goes
 through the fused kernels of ``kernels/decode_fused``: ``attn_decode``
 rotates q and k and writes the new K/V with ``rope_kv_write``, and
 ``ffn_decode`` gates with ``act_mul``; both take the block's normed
-input, which the decode step forms with ``add_rms_norm``.  ``_sdpa``,
+input, which the decode step forms with ``add_rms_norm``.  Prefill and
+its chunks outside a mesh do the same over a prompt's rows:
+``attn_prefill`` (``rope_kv_prefill``, then the flash kernel) and
+``ffn_decode``, on the rows ``add_rms_norm`` forms (``models/model.py``
+``_fused_layers``).  ``_sdpa``,
 ``rms_norm`` and ``rope`` stay as the plain references the tests compare
 the layers and kernels against.  A config with ``position_embedding``
 "nope" rotates nothing on any path, and its ``attention_multiplier``
@@ -62,7 +66,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.context import (NULL_CTX, ShardCtx, _is_dtensor,
                                             contiguous_grads, replicated_like)
 from repro_torch.distributed.sharding import placements
-from repro_torch.kernels.decode_fused.ops import act_mul, rope_kv_write
+from repro_torch.kernels.decode_fused.ops import (act_mul, rope_kv_prefill,
+                                                  rope_kv_write)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
 
@@ -275,6 +280,36 @@ def attn_forward(p, cfg: ModelConfig, x, positions, window: Optional[int],
         y = flash_attention(q, k, v, causal=True, window=window,
                             softcap=cfg.logit_softcap, scale=scale)
     return y.reshape(B, L, -1) @ p["wo"], (k, v)
+
+
+def attn_prefill(p, cfg: ModelConfig, h, B: int, window: Optional[int],
+                 pos0: int = 0, cache_k=None, cache_v=None):
+    """A prompt's or chunk's attention through the fused glue: ``attn_forward``
+    (no cache) or ``attn_chunk`` (``cache_k``/``cache_v``, the linear
+    staging cache [B, S, KV, hd] with S >= pos0 + L) past the block's norm.
+    h: the normed input as rows [B * L, d] (the prefill folds the residual
+    add into ``add_rms_norm``); row i of a batch at position ``pos0 + i``.
+    ``rope_kv_prefill`` takes qk_norm, rotates q and k (not at all under
+    NoPE) and, with a cache, stores K/V at ``pos0`` onward; the flash
+    kernel then attends over the prompt's own K/V or the cache's first
+    ``pos0 + L`` rows.  Returns (y [B * L, d], (k, v) that the flash kernel
+    read)."""
+    L = h.shape[0] // B
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    v = (h @ p["wv"]).view(B, L, KV, hd)
+    outs = () if cache_k is None else (cache_k[:, pos0:pos0 + L],
+                                       cache_v[:, pos0:pos0 + L])
+    q, k = rope_kv_prefill((h @ p["wq"]).view(B, L, H, hd),
+                           (h @ p["wk"]).view(B, L, KV, hd), v, pos0,
+                           cfg.rope_theta if cfg.rotary else None,
+                           p.get("q_norm"), p.get("k_norm"), cfg.norm_eps,
+                           *outs)
+    if cache_k is not None:
+        k, v = cache_k[:, :pos0 + L], cache_v[:, :pos0 + L]
+    y = flash_attention(q, k, v, causal=True, window=window,
+                        softcap=cfg.logit_softcap,
+                        scale=cfg.attention_multiplier)
+    return y.reshape(B * L, -1) @ p["wo"], (k, v)
 
 
 def local_heads(k, n_heads: int, n_local: int, rank: int):
@@ -544,9 +579,9 @@ def ffn_forward(p, cfg: ModelConfig, x, ctx: ShardCtx = NULL_CTX):
 
 
 def ffn_decode(p, cfg: ModelConfig, h):
-    """The dense FFN of the block's normed input h (the decode step takes
-    the norm, with the residual add folded in): ``ffn_forward`` past its
-    norm, ``act(g) * u`` in one ``act_mul``."""
+    """The dense FFN of the block's normed input h (the decode step and the
+    fused prefill take the norm, with the residual add folded in):
+    ``ffn_forward`` past its norm, ``act(g) * u`` in one ``act_mul``."""
     return act_mul(h @ p["w_gate"], h @ p["w_up"], cfg.act) @ p["w_down"]
 
 

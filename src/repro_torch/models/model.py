@@ -29,6 +29,10 @@ Differences:
   the glue of its attention layers and dense FFNs (residual adds and
   norms, RoPE and the K/V write, the gate) goes through the fused kernels
   of ``kernels/decode_fused``;
+* ``prefill``, ``prefill_chunk`` and the serving ``model_forward`` run the
+  same fused glue over a prompt's rows on CPU and CUDA tensors outside a
+  mesh (``_fused_layers``); under a ``ShardCtx`` and on meta tensors they
+  keep the plain layers, as training does;
 * ``prefill_chunk`` takes only real tokens (no padding to a fixed shape)
   and one ``pos`` for the batch;
 * ``init_cache`` defaults to ``ring=False`` (the staging layout, stacked
@@ -282,8 +286,77 @@ def _between_layers(x, ctx: ShardCtx):
                           ctx.seq_entry(x.shape[1]), None)
 
 
+def _fused_route(x, ctx: ShardCtx) -> bool:
+    """Whether a serving forward over x takes the fused glue: a CPU or CUDA
+    tensor (the wrappers' plain chains, or the kernels) outside a mesh."""
+    return not ctx.enabled and x.device.type in ("cpu", "cuda")
+
+
+def _fused_layers(model: Model, x, collect: bool, pos0: int = 0,
+                  cache: Optional[dict] = None):
+    """The serving layers over x [B, L, d] through the fused glue, as
+    ``decode_step`` runs them: the residual stream as rows [B * L, d], each
+    block's output added by the next block's norm (``add_rms_norm``, the
+    final norm included) where that block is an attention layer or a dense
+    FFN, with ``attn_prefill`` and ``ffn_decode`` past the norms; MLA,
+    mamba and MoE blocks add it first and norm inside.  Row i of a batch
+    sits at position ``pos0 + i``; ``cache``, the staging cache, takes each
+    attention layer's K/V at ``pos0`` onward (``prefill_chunk``).  Returns
+    (the final norm's output [B, L, d], each layer's state where
+    ``collect``, the MoE aux loss)."""
+    cfg = model.cfg
+    eps, alpha = cfg.norm_eps, cfg.residual_multiplier
+    B, Lx, d = x.shape
+    x = x.reshape(B * Lx, d)
+    y = None                  # the last block's output, not yet in x
+    states = []
+    aux = torch.zeros((), device=x.device)
+    for i, blk in enumerate(model.layers):
+        if blk.spec.mixer in ("full", "window"):
+            x, h = add_rms_norm(x, y, blk.attn["ln"], eps, alpha)
+            kv = () if cache is None else (cache["k"][i], cache["v"][i])
+            y, st = L.attn_prefill(blk.attn, cfg, h, B, blk.spec.window, pos0,
+                                   *kv)
+        else:
+            x = x if y is None else L.residual_add(x, y, alpha)
+            xb = x.view(B, Lx, d)
+            if blk.spec.mixer == "mla":
+                y, st = L.mla_forward(blk.attn, cfg, xb,
+                                      _positions(Lx, x.device))
+            elif collect:
+                y, st = ssd.mamba_forward(blk.mixer, cfg, xb,
+                                          return_state=True)
+            else:
+                y, st = ssd.mamba_forward(blk.mixer, cfg, xb), None
+            y = y.reshape(B * Lx, d)
+        if collect:
+            states.append(st)
+        if blk.spec.ffn == "dense":
+            x, h = add_rms_norm(x, y, blk.ffn["ln"], eps, alpha)
+            y = L.ffn_decode(blk.ffn, cfg, h)
+        elif blk.spec.ffn == "moe":
+            x = L.residual_add(x, y, alpha)
+            y, a = L.moe_forward(blk.ffn, cfg, x.view(B, Lx, d))
+            y, aux = y.view(B * Lx, d), aux + a
+    _, h = add_rms_norm(x, y, model.top["final_norm"], eps, alpha)
+    return h.view(B, Lx, d), states, aux
+
+
 def _run_layers(model: Model, x, positions, collect: bool,
                 ctx: ShardCtx = NULL_CTX):
+    """The serving layers over x [B, L, d] at ``positions`` (0 .. L-1):
+    (the final norm's output, each layer's state where ``collect``, the
+    MoE aux loss); through the fused glue where ``_fused_route`` says so,
+    else the plain layers (a mesh, meta tensors)."""
+    if _fused_route(x, ctx):
+        return _fused_layers(model, x, collect)
+    return _plain_layers(model, x, positions, collect, ctx)
+
+
+def _plain_layers(model: Model, x, positions, collect: bool,
+                  ctx: ShardCtx = NULL_CTX):
+    """``_run_layers`` through the plain layers: ``attn_forward``,
+    ``ffn_forward`` and each residual add on its own."""
     cfg = model.cfg
     alpha = cfg.residual_multiplier
     states = []
@@ -583,7 +656,8 @@ def prefill_chunk(model: Model, cache: dict, tokens, ctx: ShardCtx = NULL_CTX):
     a mesh the staging cache must be placed by
     ``distributed.sharding.place_staging``, and each layer writes and
     attends on each rank's shard (``layers._chunk_sharded``, which raises
-    on a cache placed otherwise)."""
+    on a cache placed otherwise); outside one, CPU and CUDA tensors take
+    the fused glue (``_fused_layers``)."""
     cfg = model.cfg
     if any(blk.spec.mixer not in ("full", "window") for blk in model.layers):
         raise NotImplementedError(
@@ -595,23 +669,36 @@ def prefill_chunk(model: Model, cache: dict, tokens, ctx: ShardCtx = NULL_CTX):
     if pos0 + C > cache["k"].shape[2]:
         raise ValueError(f"chunk ends at {pos0 + C}, past the staging cache "
                          f"of {cache['k'].shape[2]} positions")
-    alpha = cfg.residual_multiplier
     with sharded_scope(ctx):
         x = _scaled_embed(model, tokens)
-        bspec = ctx.batch_spec_entry(B)
-        x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
-        for i, blk in enumerate(model.layers):
-            x = L.residual_add(x, L.attn_chunk(
-                blk.attn, cfg, x, cache["k"][i], cache["v"][i], pos0,
-                blk.spec.window, ctx), alpha)
-            if blk.ffn is not None:
-                x = L.residual_add(x, _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0],
-                                   alpha)
-            x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
-        x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
-        x = ctx.constraint(x, bspec, None, None)
+        if _fused_route(x, ctx):
+            x = _fused_layers(model, x, False, pos0, cache)[0]
+        else:
+            x = _plain_chunk_layers(model, x, cache, pos0, ctx)
         cache["pos"] = pos0 + C
         return logits_fn(model, x[:, -1]), cache
+
+
+def _plain_chunk_layers(model: Model, x, cache: dict, pos0: int,
+                        ctx: ShardCtx = NULL_CTX):
+    """``prefill_chunk``'s layers over x [B, C, d] through the plain layers
+    (``attn_chunk``, ``ffn_forward`` and each residual add on its own),
+    under a mesh each on its shard: the final norm's output."""
+    cfg = model.cfg
+    alpha = cfg.residual_multiplier
+    B, C = x.shape[:2]
+    bspec = ctx.batch_spec_entry(B)
+    x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
+    for i, blk in enumerate(model.layers):
+        x = L.residual_add(x, L.attn_chunk(
+            blk.attn, cfg, x, cache["k"][i], cache["v"][i], pos0,
+            blk.spec.window, ctx), alpha)
+        if blk.ffn is not None:
+            x = L.residual_add(x, _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0],
+                               alpha)
+        x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
+    x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
+    return ctx.constraint(x, bspec, None, None)
 
 
 def decode_step(model: Model, tokens, cache: dict):
