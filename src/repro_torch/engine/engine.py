@@ -456,28 +456,34 @@ class InferenceEngine:
             self.slots[slot] = req
             return
         logits, states = prefill(self.params, self._tokens(req.tokens)[None])
-        kv = [(a[0], b[0]) for (kind, _), (a, b)
-              in zip(self._layer_caches, states) if kind == "kv"]
-        win = [(a[0], b[0]) for (kind, _), (a, b)
-               in zip(self._layer_caches, states) if kind == "win"]
-        mla = [(a[0], b[0]) for (kind, _), (a, b)
-               in zip(self._layer_caches, states) if kind == "mla"]
-        ssm = [({k: v[0] for k, v in a.items()}, b[0]) for (kind, _), (a, b)
-               in zip(self._layer_caches, states) if kind == "ssm"]
-        if self.cache is not None:
-            self._to_pages(slot, kv)
-        if self.window is not None:
-            self.window.write(slot, win)
-        if self.latent is not None:
-            self.latent.write(slot, mla)
-        if self.states is not None:
-            span = self.trace.open("prefill.state", time.perf_counter(),
-                                   req.rid, call)
-            self.states.write(slot, ssm)
-            self.trace.close(span, time.perf_counter(),
-                             bytes=self.states.slot_bytes)
+        self._write_states(slot, states, req.rid, call)
         req.tokens.append(self._greedy(logits)[0])
         self.slots[slot] = req
+
+    def _write_states(self, slot: int, states: list, rid: int,
+                      call: Optional[Span] = None):
+        """Write one request's decode states into ``slot``: one state per
+        layer, in ``layer_caches`` order, each leaf with a batch dim of 1
+        (``prefill``'s), split by cache kind in one pass.  Full attention
+        rows go into fresh pages, window rows into the slot's rings, latent
+        rows into its latent slot and mamba states into its state slot,
+        that write under a ``prefill.state`` span in ``call``."""
+        by_kind = {"kv": [], "win": [], "mla": [], "ssm": []}
+        for (kind, _), (a, b) in zip(self._layer_caches, states):
+            a = {k: v[0] for k, v in a.items()} if kind == "ssm" else a[0]
+            by_kind[kind].append((a, b[0]))
+        if self.cache is not None:
+            self._to_pages(slot, by_kind["kv"])
+        if self.window is not None:
+            self.window.write(slot, by_kind["win"])
+        if self.latent is not None:
+            self.latent.write(slot, by_kind["mla"])
+        if self.states is not None:
+            span = self.trace.open("prefill.state", time.perf_counter(), rid,
+                                   call)
+            self.states.write(slot, by_kind["ssm"])
+            self.trace.close(span, time.perf_counter(),
+                             bytes=self.states.slot_bytes)
 
     def _advance_staged(self):
         """Begin and/or advance the staged prefill by at most one chunk —
@@ -518,14 +524,9 @@ class InferenceEngine:
                 self.cfg, sc, self.max_len, n_total), st["slot"])
             self._finish_staged(shd.full(logits))
             return
-        rows = {"kv": [], "win": []}
-        for i, (kind, _) in enumerate(self._layer_caches):
-            rows[kind].append((sc["k"][i, 0, :n_total],
-                               sc["v"][i, 0, :n_total]))
-        if self.cache is not None:
-            self._to_pages(st["slot"], rows["kv"])
-        if self.window is not None:
-            self.window.write(st["slot"], rows["win"])
+        self._write_states(st["slot"], [(k[:, :n_total], v[:, :n_total])
+                                        for k, v in zip(sc["k"], sc["v"])],
+                           req.rid, st["call"])
         self._finish_staged(logits)
 
     def _finish_staged(self, logits):

@@ -26,12 +26,13 @@ on the CPU too.  On meta tensors (a dry run) a wrapper computes nothing:
 it returns empty outputs and reports its kernel's flops and bytes to
 ``_build.record_cost`` (``rope_kv_prefill`` takes CPU and CUDA tensors
 only: the dry run's meta tensors take the plain layers).
-``models.model.decode_step`` calls ``add_rms_norm``, ``rope_kv_write`` and
-``act_mul``; ``prefill``, ``prefill_chunk`` and the serving
-``model_forward`` call ``add_rms_norm``, ``rope_kv_prefill`` and
-``act_mul`` on CPU and CUDA tensors outside a mesh.  Training, the mesh
-paths (prefill and chunks under a ``ShardCtx``) and the mesh engine's ring
-decode keep the plain layers.
+The fused layer loop, ``models.model._fused_layers``, calls them:
+``add_rms_norm`` for the residual policy, and through the layers
+``rope_kv_write`` (``decode_step``), ``rope_kv_prefill`` (``prefill``,
+``prefill_chunk`` and the serving ``model_forward`` on CPU and CUDA
+tensors outside a mesh) and ``act_mul``.  The plain loop,
+``_plain_layers`` (the mesh paths, meta tensors and the ring decode), and
+training call none.
 """
 from __future__ import annotations
 

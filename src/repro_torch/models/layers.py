@@ -27,15 +27,19 @@ Attention goes through the kernel wrappers: ``attn_forward`` and
 ``attn_decode`` through ``paged_attention`` over the engine's paged cache
 (the JAX layer attends over a dense per-slot ring) or over a window
 layer's per-slot ring, laid out as whole pages of its slot (the JAX
-layer's ring with a masked ``_sdpa``).  The decode step's glue goes
-through the fused kernels of ``kernels/decode_fused``: ``attn_decode``
-rotates q and k and writes the new K/V with ``rope_kv_write``, and
-``ffn_decode`` gates with ``act_mul``; both take the block's normed
-input, which the decode step forms with ``add_rms_norm``.  Prefill and
-its chunks outside a mesh do the same over a prompt's rows:
-``attn_prefill`` (``rope_kv_prefill``, then the flash kernel) and
-``ffn_decode``, on the rows ``add_rms_norm`` forms (``models/model.py``
-``_fused_layers``).  ``_sdpa``,
+layer's ring with a masked ``_sdpa``).  The model's two serving layer
+loops (``models/model.py``) call two sets of layers.  The fused loop
+(``_fused_layers``: the decode step, and prefill and its chunks outside a
+mesh) forms each block's normed input with ``add_rms_norm`` and calls the
+layers that start past the norm, whose glue goes through the fused
+kernels of ``kernels/decode_fused``: ``attn_decode`` (one token;
+``rope_kv_write`` rotates q and k and writes the new K/V), ``attn_prefill``
+(a prompt's or chunk's rows; ``rope_kv_prefill``, then the flash kernel)
+and ``ffn_decode`` (``act_mul``).  The plain loop (``_plain_layers``: a
+mesh, meta tensors, the ring decode) calls the layers that take their
+own norm: ``attn_forward``, ``attn_chunk``, ``ring_attn_decode`` and
+``ffn_forward``.  MLA, mamba and the MoE FFN take their own norm on
+both.  ``_sdpa``,
 ``rms_norm`` and ``rope`` stay as the plain references the tests compare
 the layers and kernels against.  A config with ``position_embedding``
 "nope" rotates nothing on any path, and its ``attention_multiplier``

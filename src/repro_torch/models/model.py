@@ -15,6 +15,18 @@ Differences:
 * layers are a flat ``nn.ModuleList`` in ``cfg.layer_list()`` order, run by
   a Python loop (PyTorch runs eagerly; there is no scan to keep small);
   ``convert.py`` maps them to and from the JAX ``stages`` pytree;
+* serving runs two layer loops, each holding the residual policy (how a
+  block's output joins the residual stream, the FFN, the final norm)
+  once, while each entry point hands it only its per-layer mixer call.
+  ``_fused_layers`` folds each add into the next norm through the fused
+  kernels of ``kernels/decode_fused`` (``add_rms_norm``; RoPE with the
+  K/V store, and the gate, in the layers): ``decode_step`` runs it, and
+  so do ``prefill``, ``prefill_chunk`` and the serving ``model_forward``
+  over a prompt's rows on CPU and CUDA tensors outside a mesh.
+  ``_plain_layers`` takes each add, norm and constraint on its own: those
+  three under a ``ShardCtx`` and on meta tensors, and
+  ``ring_decode_step``.  ``_serving_layers`` alone picks the route
+  (``_fused_route``).  Training keeps a loop of its own (``_train_layer``);
 * ``prefill`` returns each layer's decode state (K/V of a full or window
   attention layer, which the engine writes into pages or into the
   layer's ring; c_kv and k_rope of an MLA layer, which it writes into a
@@ -26,13 +38,6 @@ Differences:
   (the ring laid out as whole pages of its slot), and updates the latent
   rows and the mamba states in place, every slot at once (the engine runs
   it at one fixed shape and, on the card, replays it from a CUDA graph);
-  the glue of its attention layers and dense FFNs (residual adds and
-  norms, RoPE and the K/V write, the gate) goes through the fused kernels
-  of ``kernels/decode_fused``;
-* ``prefill``, ``prefill_chunk`` and the serving ``model_forward`` run the
-  same fused glue over a prompt's rows on CPU and CUDA tensors outside a
-  mesh (``_fused_layers``); under a ``ShardCtx`` and on meta tensors they
-  keep the plain layers, as training does;
 * ``prefill_chunk`` takes only real tokens (no padding to a fixed shape)
   and one ``pos`` for the batch;
 * ``init_cache`` defaults to ``ring=False`` (the staging layout, stacked
@@ -56,7 +61,7 @@ Differences:
 The config's muP scalars hold on every path: the embedding times
 ``embedding_multiplier``, each block's output times
 ``residual_multiplier`` as it joins the residual (``layers.residual_add``,
-in decode folded into ``add_rms_norm``), the logits divided by
+on the fused loop folded into ``add_rms_norm``), the logits divided by
 ``logits_scaling``; NoPE (``position_embedding`` "nope") and
 ``attention_multiplier`` reach every full and window attention path, and
 an MLA layer, whose rotary part and scale are its own, refuses both.
@@ -73,6 +78,7 @@ text-only, as the JAX engine does.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -292,43 +298,35 @@ def _fused_route(x, ctx: ShardCtx) -> bool:
     return not ctx.enabled and x.device.type in ("cpu", "cuda")
 
 
-def _fused_layers(model: Model, x, collect: bool, pos0: int = 0,
-                  cache: Optional[dict] = None):
-    """The serving layers over x [B, L, d] through the fused glue, as
-    ``decode_step`` runs them: the residual stream as rows [B * L, d], each
-    block's output added by the next block's norm (``add_rms_norm``, the
-    final norm included) where that block is an attention layer or a dense
-    FFN, with ``attn_prefill`` and ``ffn_decode`` past the norms; MLA,
-    mamba and MoE blocks add it first and norm inside.  Row i of a batch
-    sits at position ``pos0 + i``; ``cache``, the staging cache, takes each
-    attention layer's K/V at ``pos0`` onward (``prefill_chunk``).  Returns
-    (the final norm's output [B, L, d], each layer's state where
-    ``collect``, the MoE aux loss)."""
+def _fused_layers(model: Model, x, mix, collect: bool = False, aux=None,
+                  rows: bool = True):
+    """The serving layers through the fused glue, and with them the
+    residual policy of every fused path: each block's output joins the
+    residual stream times ``residual_multiplier``, added by the next
+    block's norm (``add_rms_norm``, the final norm included) where that
+    block is a full or window attention layer or a dense FFN
+    (``ffn_decode`` past the norm), and first, ahead of the block's own
+    norm, where it is an MLA, mamba or MoE block.  ``mix(i, block, x) ->
+    (y, state)`` is the caller's mixer call for layer i, handed an
+    attention layer's normed input, else the residual stream.  x [B, L, d]
+    runs as rows [B * L, d] with ``rows`` (a prompt or chunk; the MoE FFN
+    sees them as [B, L, d]), else as it is (``decode_step``'s [B, 1, d]).
+    Returns (the final norm's output [B, L, d], each layer's state where
+    ``collect``, ``aux`` plus the MoE aux losses where ``aux`` is
+    given)."""
     cfg = model.cfg
     eps, alpha = cfg.norm_eps, cfg.residual_multiplier
-    B, Lx, d = x.shape
-    x = x.reshape(B * Lx, d)
+    shape = x.shape
+    if rows:
+        x = x.reshape(-1, shape[-1])
     y = None                  # the last block's output, not yet in x
     states = []
-    aux = torch.zeros((), device=x.device)
     for i, blk in enumerate(model.layers):
         if blk.spec.mixer in ("full", "window"):
             x, h = add_rms_norm(x, y, blk.attn["ln"], eps, alpha)
-            kv = () if cache is None else (cache["k"][i], cache["v"][i])
-            y, st = L.attn_prefill(blk.attn, cfg, h, B, blk.spec.window, pos0,
-                                   *kv)
         else:
-            x = x if y is None else L.residual_add(x, y, alpha)
-            xb = x.view(B, Lx, d)
-            if blk.spec.mixer == "mla":
-                y, st = L.mla_forward(blk.attn, cfg, xb,
-                                      _positions(Lx, x.device))
-            elif collect:
-                y, st = ssd.mamba_forward(blk.mixer, cfg, xb,
-                                          return_state=True)
-            else:
-                y, st = ssd.mamba_forward(blk.mixer, cfg, xb), None
-            y = y.reshape(B * Lx, d)
+            x = h = x if y is None else L.residual_add(x, y, alpha)
+        y, st = mix(i, blk, h)
         if collect:
             states.append(st)
         if blk.spec.ffn == "dense":
@@ -336,50 +334,97 @@ def _fused_layers(model: Model, x, collect: bool, pos0: int = 0,
             y = L.ffn_decode(blk.ffn, cfg, h)
         elif blk.spec.ffn == "moe":
             x = L.residual_add(x, y, alpha)
-            y, a = L.moe_forward(blk.ffn, cfg, x.view(B, Lx, d))
-            y, aux = y.view(B * Lx, d), aux + a
+            y, a = L.moe_forward(blk.ffn, cfg, x.view(shape) if rows else x)
+            y = y.view(x.shape) if rows else y
+            aux = None if aux is None else aux + a
     _, h = add_rms_norm(x, y, model.top["final_norm"], eps, alpha)
-    return h.view(B, Lx, d), states, aux
-
-
-def _run_layers(model: Model, x, positions, collect: bool,
-                ctx: ShardCtx = NULL_CTX):
-    """The serving layers over x [B, L, d] at ``positions`` (0 .. L-1):
-    (the final norm's output, each layer's state where ``collect``, the
-    MoE aux loss); through the fused glue where ``_fused_route`` says so,
-    else the plain layers (a mesh, meta tensors)."""
-    if _fused_route(x, ctx):
-        return _fused_layers(model, x, collect)
-    return _plain_layers(model, x, positions, collect, ctx)
+    return h.view(shape) if rows else h, states, aux
 
 
 def _plain_layers(model: Model, x, positions, collect: bool,
-                  ctx: ShardCtx = NULL_CTX):
-    """``_run_layers`` through the plain layers: ``attn_forward``,
-    ``ffn_forward`` and each residual add on its own."""
+                  ctx: ShardCtx = NULL_CTX, mix=None, aux=None):
+    """The serving layers through the plain layers, and with them the
+    residual policy of every plain path: each block's output added on its
+    own (``residual_add``, times ``residual_multiplier``), the FFN through
+    ``_ffn``, ``_between_layers`` after each layer, then the final
+    ``rms_norm``.  It runs prefill and its chunks under a mesh or on meta
+    tensors, ``ring_decode_step``, and is the tests' oracle of the fused
+    route.  ``mix`` is as in ``_fused_layers``, handed the residual
+    stream; by default a prompt's at ``positions`` (``_prompt_mixer``).
+    Returns as ``_fused_layers``."""
     cfg = model.cfg
     alpha = cfg.residual_multiplier
+    mix = mix or _prompt_mixer(model, x, positions, collect, ctx, False)
     states = []
-    aux = torch.zeros((), device=x.device)
-    for blk in model.layers:
-        if blk.spec.mixer in ("full", "window"):
-            y, st = L.attn_forward(blk.attn, cfg, x, positions,
-                                   blk.spec.window, ctx)
-        elif blk.spec.mixer == "mla":
-            y, st = L.mla_forward(blk.attn, cfg, x, positions, ctx)
-        elif collect:
-            y, st = ssd.mamba_forward(blk.mixer, cfg, x, ctx,
-                                      return_state=True)
-        else:
-            y, st = ssd.mamba_forward(blk.mixer, cfg, x, ctx), None
+    for i, blk in enumerate(model.layers):
+        y, st = mix(i, blk, x)
         x = L.residual_add(x, y, alpha)
         if collect:
             states.append(st)
         if blk.ffn is not None:
             y, a = _ffn(blk.spec, blk.ffn, cfg, x, ctx)
-            x, aux = L.residual_add(x, y, alpha), aux + a
+            x = L.residual_add(x, y, alpha)
+            aux = None if aux is None else aux + a
         x = _between_layers(x, ctx)
     return L.rms_norm(x, model.top["final_norm"], cfg.norm_eps), states, aux
+
+
+def _serving_layers(model: Model, x, mixer, collect: bool = False,
+                    ctx: ShardCtx = NULL_CTX, aux=None):
+    """The serving layers over a prompt or chunk x [B, L, d], the one place
+    its route is decided: ``_fused_layers`` where ``_fused_route`` says so,
+    else ``_plain_layers``; ``mixer(fused)`` is the caller's mixer call
+    for that route."""
+    if _fused_route(x, ctx):
+        return _fused_layers(model, x, mixer(True), collect, aux)
+    return _plain_layers(model, x, None, collect, ctx, mixer(False), aux)
+
+
+def _prompt_mixer(model: Model, x, positions, collect: bool, ctx: ShardCtx,
+                  fused: bool):
+    """The mixer call of ``prefill`` and the serving ``model_forward`` over
+    a prompt x [B, S, d] at ``positions``: full and window attention
+    through ``attn_prefill`` on the fused route's rows, else
+    ``attn_forward``; MLA through ``mla_forward`` and mamba through
+    ``mamba_forward`` (with its state where ``collect``) over [B, S, d]."""
+    cfg = model.cfg
+    B, S, d = x.shape
+
+    def mix(i, blk, x):
+        if blk.spec.mixer in ("full", "window"):
+            if fused:
+                return L.attn_prefill(blk.attn, cfg, x, B, blk.spec.window)
+            return L.attn_forward(blk.attn, cfg, x, positions,
+                                  blk.spec.window, ctx)
+        xb = x.view(B, S, d) if fused else x
+        if blk.spec.mixer == "mla":
+            y, st = L.mla_forward(blk.attn, cfg, xb, positions, ctx)
+        elif collect:
+            y, st = ssd.mamba_forward(blk.mixer, cfg, xb, ctx,
+                                      return_state=True)
+        else:
+            y, st = ssd.mamba_forward(blk.mixer, cfg, xb, ctx), None
+        return y.reshape(B * S, d) if fused else y, st
+    return mix
+
+
+def _chunk_mixer(model: Model, x, cache: dict, pos0: int, ctx: ShardCtx,
+                 fused: bool):
+    """The mixer call of ``prefill_chunk`` over a chunk x [B, C, d] at
+    ``pos0`` onward: each layer writes its K/V into layer i of the staging
+    ``cache`` and attends over its first ``pos0 + C`` rows, through
+    ``attn_prefill`` on the fused route's rows, else ``attn_chunk``."""
+    cfg = model.cfg
+    B = x.shape[0]
+
+    def mix(i, blk, x):
+        k, v = cache["k"][i], cache["v"][i]
+        if fused:
+            return L.attn_prefill(blk.attn, cfg, x, B, blk.spec.window, pos0,
+                                  k, v)[0], None
+        return L.attn_chunk(blk.attn, cfg, x, k, v, pos0, blk.spec.window,
+                            ctx), None
+    return mix
 
 
 def _train_layer(spec: BlockSpec, parts: dict, cfg: ModelConfig, x,
@@ -434,7 +479,9 @@ def model_forward(model: Model, tokens, prefix_embeds=None,
         x = embed_tokens(model, tokens, prefix_embeds, params, ctx)
         positions = _positions(x.shape[1], x.device)
         if not train:
-            x, _, aux = _run_layers(model, x, positions, False, ctx)
+            mixer = partial(_prompt_mixer, model, x, positions, False, ctx)
+            x, _, aux = _serving_layers(model, x, mixer, ctx=ctx,
+                                        aux=torch.zeros((), device=x.device))
             return x, aux
         aux = torch.zeros((), device=x.device)
         for i, blk in enumerate(model.layers):
@@ -466,8 +513,9 @@ def prefill(model: Model, tokens, prefix_embeds=None,
     (``local_map``)."""
     with sharded_scope(ctx):
         x = embed_tokens(model, tokens, prefix_embeds, ctx=ctx)
-        positions = _positions(x.shape[1], x.device)
-        x, states, _ = _run_layers(model, x, positions, True, ctx)
+        mixer = partial(_prompt_mixer, model, x,
+                        _positions(x.shape[1], x.device), True, ctx)
+        x, states, _ = _serving_layers(model, x, mixer, True, ctx)
         x = ctx.constraint(x, ctx.batch_spec_entry(x.shape[0]), None, None)
         return logits_fn(model, x[:, -1]), states
 
@@ -620,29 +668,23 @@ def ring_decode_step(model: Model, tokens, cache: dict,
     ring=True)``): the reference's ``decode_step``.  tokens: [B, 1] int.
     Each layer reads and updates its entry in place: attention over the
     dense ring through the plain ``_sdpa``, MLA through ``mla_decode``,
-    mamba through ``mamba_decode``; ``pos`` advances by one.  Returns
-    (logits [B, V], cache)."""
+    mamba through ``mamba_decode``, in ``_plain_layers``; ``pos`` advances
+    by one.  Returns (logits [B, V], cache)."""
     cfg = model.cfg
-    alpha = cfg.residual_multiplier
     pos = cache["pos"]
+
+    def mix(i, blk, x):
+        c = cache["layers"][i]
+        if blk.spec.mixer in ("full", "window"):
+            return L.ring_attn_decode(blk.attn, cfg, x, c["k"], c["v"], pos,
+                                      blk.spec.window, ctx), None
+        if blk.spec.mixer == "mla":
+            return L.mla_decode(blk.attn, cfg, x, c["ckv"], c["kr"],
+                                pos + 1), None
+        return ssd.mamba_decode(blk.mixer, cfg, x, c["conv"], c["ssm"])
     with sharded_scope(ctx):
-        x = _scaled_embed(model, tokens)
-        bspec = ctx.batch_spec_entry(x.shape[0])
-        x = ctx.constraint(x, bspec, None, None)
-        for blk, c in zip(model.layers, cache["layers"]):
-            if blk.spec.mixer in ("full", "window"):
-                y = L.ring_attn_decode(blk.attn, cfg, x, c["k"], c["v"], pos,
-                                       blk.spec.window, ctx)
-            elif blk.spec.mixer == "mla":
-                y = L.mla_decode(blk.attn, cfg, x, c["ckv"], c["kr"], pos + 1)
-            else:
-                y, _ = ssd.mamba_decode(blk.mixer, cfg, x, c["conv"], c["ssm"])
-            x = L.residual_add(x, y, alpha)
-            if blk.ffn is not None:
-                x = L.residual_add(x, _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0],
-                                   alpha)
-            x = ctx.constraint(x, bspec, None, None)
-        x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
+        x = _between_layers(_scaled_embed(model, tokens), ctx)
+        x = _plain_layers(model, x, None, False, ctx, mix)[0]
         logits = logits_fn(model, x[:, 0])
         cache["pos"] = pos + 1
     return logits, cache
@@ -657,9 +699,8 @@ def prefill_chunk(model: Model, cache: dict, tokens, ctx: ShardCtx = NULL_CTX):
     ``distributed.sharding.place_staging``, and each layer writes and
     attends on each rank's shard (``layers._chunk_sharded``, which raises
     on a cache placed otherwise); outside one, CPU and CUDA tensors take
-    the fused glue (``_fused_layers``)."""
-    cfg = model.cfg
-    if any(blk.spec.mixer not in ("full", "window") for blk in model.layers):
+    the fused loop (``_serving_layers``)."""
+    if any(b.mixer not in ("full", "window") for b in model.cfg.layer_list()):
         raise NotImplementedError(
             "prefill_chunk supports full/window attention only: mla and "
             "mamba states are not chunk-resumable (the engine prefills them "
@@ -670,96 +711,46 @@ def prefill_chunk(model: Model, cache: dict, tokens, ctx: ShardCtx = NULL_CTX):
         raise ValueError(f"chunk ends at {pos0 + C}, past the staging cache "
                          f"of {cache['k'].shape[2]} positions")
     with sharded_scope(ctx):
-        x = _scaled_embed(model, tokens)
-        if _fused_route(x, ctx):
-            x = _fused_layers(model, x, False, pos0, cache)[0]
-        else:
-            x = _plain_chunk_layers(model, x, cache, pos0, ctx)
+        x = _between_layers(_scaled_embed(model, tokens), ctx)
+        mixer = partial(_chunk_mixer, model, x, cache, pos0, ctx)
+        x = _serving_layers(model, x, mixer, ctx=ctx)[0]
+        x = ctx.constraint(x, ctx.batch_spec_entry(B), None, None)
         cache["pos"] = pos0 + C
         return logits_fn(model, x[:, -1]), cache
 
 
-def _plain_chunk_layers(model: Model, x, cache: dict, pos0: int,
-                        ctx: ShardCtx = NULL_CTX):
-    """``prefill_chunk``'s layers over x [B, C, d] through the plain layers
-    (``attn_chunk``, ``ffn_forward`` and each residual add on its own),
-    under a mesh each on its shard: the final norm's output."""
-    cfg = model.cfg
-    alpha = cfg.residual_multiplier
-    B, C = x.shape[:2]
-    bspec = ctx.batch_spec_entry(B)
-    x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
-    for i, blk in enumerate(model.layers):
-        x = L.residual_add(x, L.attn_chunk(
-            blk.attn, cfg, x, cache["k"][i], cache["v"][i], pos0,
-            blk.spec.window, ctx), alpha)
-        if blk.ffn is not None:
-            x = L.residual_add(x, _ffn(blk.spec, blk.ffn, cfg, x, ctx)[0],
-                               alpha)
-        x = ctx.constraint(x, bspec, ctx.seq_entry(C), None)
-    x = L.rms_norm(x, model.top["final_norm"], cfg.norm_eps)
-    return ctx.constraint(x, bspec, None, None)
-
-
 def decode_step(model: Model, tokens, cache: dict):
-    """One decode iteration.  tokens: [B] int (the last token of each
-    sequence).
-
-    ``cache`` holds each cache the model's layers use (``layer_caches``),
-    as ``PagedKVCache.decode_view`` and ``SSMStateCache.decode_view`` give
-    it; the engine passes every slot at a fixed shape, row b being slot b.
-    Full attention layers attend over ``k_pages``/``v_pages`` [n kv
-    layers, P, page, KV, hd] through ``block_tables`` int32 [B, n_pages]
-    and ``context_lens`` int32 [B] (counting the new token), and write the
-    new K/V into the pages.  Window layers write the new K/V into their
-    ring and attend over its first ``min(context_lens, S)`` rows: the
-    i-th window layer is layer ``rank`` of stack ``j``, ``(j, rank) =
-    win_where[i]``, and ``win_stacks[j]`` holds (K, V [its layers, slots *
-    ring pages, page, KV, hd], the identity table int32 [B, ring pages], S)
-    of one ring size S, the new row going to ``(context_lens - 1) % S`` of
-    slot b's pages, as ``WindowCache.decode_view`` gives them.  MLA layers write the new token's latent rows into
-    ``ckv`` [n mla layers, B, S, kv_lora] and ``kr`` [n mla layers, B, S,
-    rope] at ``context_lens - 1`` and attend over them, as
-    ``LatentCache.decode_view`` gives them.  Mamba layers update ``conv``
-    {"x", "B", "C": [n ssm layers, B, K-1, ·]} and ``ssm`` [n ssm layers,
-    B, H, P, N] f32 in place.  MoE layers route the B rows together.  No
-    host read and no host-built tensor: the step can be captured in a
-    CUDA graph.  Each block's output ``y`` is added to the residual stream
-    by the next block's norm (``add_rms_norm``, the final norm included),
-    where that block is an attention layer or a dense FFN; MLA, mamba and
-    MoE blocks add it first and norm inside.  Each add takes the config's
-    ``residual_multiplier``.  Returns logits [B, V]."""
+    """One decode iteration over every slot: tokens [B] int, the last token
+    of each row, row b being slot b; ``cache``, the engine's view of the
+    caches its layers use (``layer_caches``), as their ``decode_view``s
+    give them.  A full attention layer writes the new K/V into its pages
+    and attends over ``context_lens`` tokens (the new one counted); the
+    i-th window layer does so in its ring, layer ``rank`` of
+    ``win_stacks[j]`` where ``(j, rank) = win_where[i]``; an MLA layer in
+    its latent rows; a mamba layer updates its states in place.  The
+    residual policy is ``_fused_layers``'s, over [B, 1, d].  No host read
+    and no host-built tensor: the engine captures the step in a CUDA
+    graph.  Returns logits [B, V]."""
     cfg = model.cfg
-    eps, alpha = cfg.norm_eps, cfg.residual_multiplier
+    where, lens = layer_caches(cfg), cache.get("context_lens")
+
+    def mix(i, blk, h):
+        kind, r = where[i]
+        if kind == "kv":
+            return L.attn_decode(blk.attn, cfg, h, cache["k_pages"][r],
+                                 cache["v_pages"][r], cache["block_tables"],
+                                 lens), None
+        if kind == "win":
+            j, rank = cache["win_where"][r]
+            k, v, tables, size = cache["win_stacks"][j]
+            return L.attn_decode(blk.attn, cfg, h, k[rank], v[rank], tables,
+                                 lens, size), None
+        if kind == "mla":
+            return L.mla_decode(blk.attn, cfg, h, cache["ckv"][r],
+                                cache["kr"][r], lens), None
+        return ssd.mamba_decode(blk.mixer, cfg, h,
+                                {k: v[r] for k, v in cache["conv"].items()},
+                                cache["ssm"][r])
     x = embed_tokens(model, tokens)[:, None]
-    y = None                  # the last block's output, not yet in x
-    for blk, (kind, i) in zip(model.layers, layer_caches(cfg)):
-        if kind in ("kv", "win"):
-            x, h = add_rms_norm(x, y, blk.attn["ln"], eps, alpha)
-            if kind == "kv":
-                y = L.attn_decode(blk.attn, cfg, h, cache["k_pages"][i],
-                                  cache["v_pages"][i], cache["block_tables"],
-                                  cache["context_lens"])
-            else:
-                j, rank = cache["win_where"][i]
-                k, v, tables, size = cache["win_stacks"][j]
-                y = L.attn_decode(blk.attn, cfg, h, k[rank], v[rank], tables,
-                                  cache["context_lens"], size)
-        else:
-            x = x if y is None else L.residual_add(x, y, alpha)
-            if kind == "mla":
-                y = L.mla_decode(blk.attn, cfg, x, cache["ckv"][i],
-                                 cache["kr"][i], cache["context_lens"])
-            else:
-                y, _ = ssd.mamba_decode(
-                    blk.mixer, cfg, x,
-                    {k: v[i] for k, v in cache["conv"].items()},
-                    cache["ssm"][i])
-        if blk.spec.ffn == "dense":
-            x, h = add_rms_norm(x, y, blk.ffn["ln"], eps, alpha)
-            y = L.ffn_decode(blk.ffn, cfg, h)
-        elif blk.spec.ffn == "moe":
-            x = L.residual_add(x, y, alpha)
-            y, _ = L.moe_forward(blk.ffn, cfg, x)
-    _, h = add_rms_norm(x, y, model.top["final_norm"], eps, alpha)
+    h = _fused_layers(model, x, mix, rows=False)[0]
     return logits_fn(model, h[:, 0])

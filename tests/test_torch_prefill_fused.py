@@ -1,9 +1,9 @@
 """The fused prefill (``models/model.py`` ``_fused_layers``) on the CPU,
 where each fused wrapper takes its plain chain: held bit for bit to the
-plain layers it replaces (``_plain_layers``, ``_plain_chunk_layers``: each
-norm, RoPE, K/V store, activation and residual add on its own) on the last
-token's logits, every layer's decode state, every page row the engine
-writes and every row of the staging cache.  Reduced configurations: a
+plain layers it replaces (``_plain_layers`` with the prompt's or the
+chunk's mixer call: each norm, RoPE, K/V store, activation and residual
+add on its own) on the last token's logits, every layer's decode state,
+every page row the engine writes and every row of the staging cache.  Reduced configurations: a
 minicpm-shaped MHA at head dim 64 with silu, GQA with qk_norm (qwen3-32b),
 NoPE with the muP scalars (a residual multiplier of 0.22 and an attention
 scale), window layers with an attention softcap and tanh-gelu
@@ -16,7 +16,10 @@ against qk_norm, ``rope`` and the two stores; spies on the wrappers (a
 dense layer calls ``add_rms_norm`` twice, ``rope_kv_prefill`` and
 ``act_mul`` once; training and a mesh call none); and one dense prefill
 layer's aten dispatches (the fused wrappers and ``flash_attention`` one op
-each), 102 on the plain layers, held at 30 or fewer.  The kernels
+each), 102 on the plain layers, held at 30 or fewer; and the dispatches of
+``prefill``, ``prefill_chunk``, ``decode_step`` and ``ring_decode_step``
+on each configuration, held to those of the six layer loops that the
+fused and plain loops replaced.  The kernels
 themselves run only on the card (``chip_smoke.py`` phase 2 holds them to
 the same chains)."""
 import collections
@@ -29,6 +32,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.configs import get_config, reduce_config  # noqa: E402
 from repro_torch.configs.base import uniform_stage  # noqa: E402
+from repro_torch.distributed.context import NULL_CTX  # noqa: E402
 from repro_torch.engine.engine import EngineRequest, InferenceEngine  # noqa: E402
 from repro_torch.kernels.decode_fused import ops  # noqa: E402
 from repro_torch.kernels.decode_fused.ops import rope_kv_prefill  # noqa: E402
@@ -179,8 +183,9 @@ def test_chunked_prefill_is_the_plain_chain(name, dtype):
         for pos0 in range(0, PROMPT, CHUNK):
             chunk = tokens[:, pos0:pos0 + CHUNK]
             logits, _ = TM.prefill_chunk(model, fused, chunk)
-            h = TM._plain_chunk_layers(model, TM._scaled_embed(model, chunk),
-                                       plain, pos0)
+            x = TM._scaled_embed(model, chunk)
+            mix = TM._chunk_mixer(model, x, plain, pos0, NULL_CTX, False)
+            h = TM._plain_layers(model, x, None, False, mix=mix)[0]
             plain["pos"] = pos0 + chunk.shape[1]
             assert torch.equal(logits, TM.logits_fn(model, h[:, -1]))
             assert fused["pos"] == plain["pos"]
@@ -354,6 +359,70 @@ def test_dense_prefill_layer_dispatches_at_most_30(chunk, monkeypatch):
     n = _dispatches(3, chunk, monkeypatch) - _dispatches(2, chunk,
                                                          monkeypatch)
     assert 0 < n <= MAX_DISPATCHES
+
+
+# aten dispatches of each entry point in bf16 (the fused wrappers, flash and
+# paged attention one op each) as the six layer loops that the fused and
+# plain loops replaced made them: a prefill of 2 x 29 tokens, a chunk of 2 x
+# 8 at position 8, a decode step over an engine's view (2 slots, one busy)
+# and a ring decode step of 2 rows
+LOOP_DISPATCHES = {
+    "minicpm": {"prefill": 44, "chunk": 55, "decode": 71, "ring": 316},
+    "gqa_qk_norm": {"prefill": 41, "chunk": 52, "decode": 70, "ring": 351},
+    "nope_mup": {"prefill": 46, "chunk": 57, "decode": 73, "ring": 250},
+    "window_softcap": {"prefill": 138, "chunk": 185, "decode": 270,
+                       "ring": 1384},
+    "moe": {"prefill": 195, "chunk": 206, "decode": 208, "ring": 425},
+    "mla": {"prefill": 651, "decode": 717, "ring": 735},
+    "hybrid": {"prefill": 3977, "decode": 2208, "ring": 2253},
+}
+
+
+def _dropped(cfg) -> int:
+    """What a prefill or chunk call no longer dispatches: the aux loss it
+    threw away (its zeros and an add per MoE layer) and each MLA layer's
+    own positions (an arange and its unsqueeze: the prompt's serve)."""
+    blocks = cfg.layer_list()
+    return (1 + sum(b.ffn == "moe" for b in blocks)
+            + 2 * sum(b.mixer == "mla" for b in blocks))
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_entry_points_dispatch_as_the_layer_loops_did(name, monkeypatch):
+    """Decode and ring decode dispatch exactly what they did; prefill and
+    a chunk that less only what ``_dropped`` counts."""
+    cfg, model = _model(name, torch.bfloat16)
+    toks = _tokens(cfg, 2, PROMPT)
+    eng = InferenceEngine(cfg, model, max_batch=2, max_len=64, device="cpu")
+    eng.submit(EngineRequest(rid=0, tokens=toks[0, :11].tolist(),
+                             prompt_len=11, max_new_tokens=4))
+    with torch.no_grad():
+        eng.step()
+        _, states = TM.prefill(model, toks)
+    ring = TM.to_ring_cache(cfg, states, 40, PROMPT)
+    cache = init_cache(cfg, 2, 40, dtype=torch.bfloat16, device="cpu")
+    cache["pos"] = CHUNK
+    calls = {"prefill": lambda: TM.prefill(model, toks),
+             "chunk": lambda: TM.prefill_chunk(model, cache,
+                                               toks[:, CHUNK:2 * CHUNK]),
+             "decode": lambda: TM.decode_step(model, eng._dev[:2], eng._view),
+             "ring": lambda: TM.ring_decode_step(model, toks[:, :1], ring)}
+    got = {}
+    for entry in LOOP_DISPATCHES[name]:
+        mode = _Count()
+        with monkeypatch.context() as m:
+            for mod, fn in ((TM, "add_rms_norm"), (TL, "rope_kv_prefill"),
+                            (TL, "rope_kv_write"), (TL, "act_mul"),
+                            (TL, "flash_attention"), (TL, "paged_attention")):
+                m.setattr(mod, fn, mode.one_op(getattr(mod, fn)))
+            with torch.no_grad(), mode:
+                calls[entry]()
+        got[entry] = mode.n
+    want = dict(LOOP_DISPATCHES[name])
+    for entry in ("prefill", "chunk"):
+        if entry in want:
+            want[entry] -= _dropped(cfg)
+    assert got == want
 
 
 # ---------------------------------------------------------------------------
